@@ -1,0 +1,461 @@
+"""The mapper API of the port: one ``Aligner`` facade over pluggable engines.
+
+The counterpart of ``repro.api`` for single-end alignment::
+
+    from repro_torch.api import Aligner, AlignOptions
+
+    al = Aligner.from_fasta("ref.fa")            # or .from_bundle/.from_index
+    result = al.align(batch)                     # BatchResult
+    al.stream_sam(open_batches("reads.fq"), "out.sam")
+
+* Device: ``device="cuda"`` (the default, from ``AlignOptions.device``)
+  runs SMEM, SAL and BSW on the card through the hand-written kernels.
+  Without a CUDA device the constructor raises ``RuntimeError``; it never
+  carries on on the CPU.  ``device="cpu"`` runs the kernels' plain
+  PyTorch versions — what the tests use.
+* Engines: ``AlignOptions.engine`` selects a driver through a registry
+  (``register_engine``).  An engine is a callable with the driver
+  signature of ``repro_torch.core.pipeline``:
+
+      se(idx, reads, PipelineOptions) -> (results, stats)
+
+  "cuda" is the one engine in the tree.  Paired-end input is not ported
+  yet and raises.
+* Results: a structured ``BatchResult`` (SAM body + per-stage stats +
+  names + lens + parsed ``AlignmentRecord`` views).
+
+``Aligner.align`` honors per-read true lengths: a length-padded
+``ReadBatch`` is regrouped by true length and each group is aligned at
+its own width, so pad bases never reach the kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import sys
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from . import obs
+from .core.contig import sam_header as _contig_header
+from .core.sam import format_sam
+from .kernels.engine import run_se_cuda
+from .options import AlignOptions, parse_read_group
+
+VERSION = "0.2.0"                 # keep in sync with pyproject.toml
+
+__all__ = ["Aligner", "AlignOptions", "AlignmentRecord", "BatchResult",
+           "Engine", "engines", "get_engine", "register_engine",
+           "resolve_device", "VERSION"]
+
+
+# ---------------------------------------------------------------------
+# Engine registry
+# ---------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Engine:
+    """A pluggable SE driver (see module docstring for the signature)."""
+    name: str
+    se: Callable
+
+
+_ENGINES: dict[str, Engine] = {}
+
+
+def register_engine(name: str, se: Callable, *,
+                    replace: bool = False) -> Engine:
+    """Register a driver under ``name`` (usable as
+    ``AlignOptions(engine=name)``).  Registering an existing name raises
+    unless ``replace=True``."""
+    if name in _ENGINES and not replace:
+        raise ValueError(f"engine {name!r} already registered "
+                         f"(pass replace=True to shadow it)")
+    eng = Engine(name, se)
+    _ENGINES[name] = eng
+    return eng
+
+
+def get_engine(name: str) -> Engine:
+    try:
+        return _ENGINES[name]
+    except KeyError:
+        raise ValueError(f"unknown engine {name!r} "
+                         f"(registered: {', '.join(sorted(_ENGINES))})")
+
+
+def engines() -> list[str]:
+    """Names of all registered engines."""
+    return sorted(_ENGINES)
+
+
+# the stage-major pipeline with its hot kernels (SMEM occ lookups, BSW
+# blocks) through the CUDA kernels; byte-identical to the reference's
+# "batched" and "pallas" engines (tested on the CPU path)
+register_engine("cuda", run_se_cuda)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device the pipeline can run on: a CUDA
+    device that exists, or the CPU.  Raises RuntimeError when CUDA is
+    asked for and there is none — the port never falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} asked for, but no CUDA device is "
+                f"available (pass device='cpu' to run the plain PyTorch "
+                f"versions of the kernels)")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"no CUDA device {dev.index}")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(device)!r} "
+                         f"(use 'cuda[:n]' or 'cpu')")
+    return dev
+
+
+# ---------------------------------------------------------------------
+# Structured results
+# ---------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AlignmentRecord:
+    """One SAM record, parsed into typed fields (POS is 0-based here;
+    the SAM text keeps its 1-based convention).  Unmapped placeholder
+    records (SAM POS 0) therefore carry the sentinel ``pos == -1`` —
+    check ``is_unmapped`` before using ``pos``/``pnext``."""
+    qname: str
+    flag: int
+    rname: str
+    pos: int
+    mapq: int
+    cigar: str
+    rnext: str
+    pnext: int
+    tlen: int
+    tags: dict
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & 0x4)
+
+    @property
+    def is_rev(self) -> bool:
+        return bool(self.flag & 0x10)
+
+    @property
+    def is_secondary(self) -> bool:
+        return bool(self.flag & 0x100)
+
+    @property
+    def is_paired(self) -> bool:
+        return bool(self.flag & 0x1)
+
+    @property
+    def is_proper(self) -> bool:
+        return bool(self.flag & 0x2)
+
+    @property
+    def score(self) -> int | None:
+        v = self.tags.get("AS")
+        return None if v is None else int(v)
+
+    @property
+    def nm(self) -> int | None:
+        v = self.tags.get("NM")
+        return None if v is None else int(v)
+
+    @property
+    def read_group(self) -> str | None:
+        return self.tags.get("RG")
+
+    @classmethod
+    def from_sam(cls, line: str) -> "AlignmentRecord":
+        f = line.rstrip("\n").split("\t")
+        tags = {}
+        for t in f[11:]:
+            tag, _typ, val = t.split(":", 2)
+            tags[tag] = val
+        return cls(qname=f[0], flag=int(f[1]), rname=f[2], pos=int(f[3]) - 1,
+                   mapq=int(f[4]), cigar=f[5], rnext=f[6],
+                   pnext=int(f[7]) - 1, tlen=int(f[8]), tags=tags)
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Everything one ``align`` call produced.
+
+    ``alignments`` holds the raw per-read ``Alignment`` lists;
+    ``sam()`` / ``records()`` are the emitted records.
+    """
+    names: list
+    lens: np.ndarray                  # (B,) SE; (2, B) PE
+    stats: dict
+    paired: bool
+    alignments: list | None = None
+    _sam_body: list = dataclasses.field(default_factory=list, repr=False)
+    _records: list | None = dataclasses.field(default=None, repr=False)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def sam(self) -> list[str]:
+        """SAM body lines (headerless; see ``Aligner.sam_header``)."""
+        return list(self._sam_body)
+
+    def records(self) -> list[AlignmentRecord]:
+        """Parsed views of the SAM body (parsed once, then cached —
+        treat the returned list as read-only)."""
+        if self._records is None:
+            self._records = [AlignmentRecord.from_sam(ln)
+                             for ln in self._sam_body]
+        return self._records
+
+    @property
+    def n_records(self) -> int:
+        return len(self._sam_body)
+
+    @property
+    def n_mapped(self) -> int:
+        return sum(1 for r in self.records()
+                   if not r.is_unmapped and not r.is_secondary)
+
+
+# ---------------------------------------------------------------------
+# Batch coercion helpers
+# ---------------------------------------------------------------------
+
+def _coerce_se(batch, names, lens):
+    """Accept a ReadBatch, a (B, L) uint8 array, or a list of read
+    strings; return (reads, names, lens) with lens always materialised."""
+    if hasattr(batch, "reads") and hasattr(batch, "names"):
+        reads = batch.reads
+        names = list(batch.names) if names is None else list(names)
+        lens = batch.lens if lens is None else lens
+    elif isinstance(batch, (list, tuple)) and batch and \
+            isinstance(batch[0], str):
+        from .io.stream import pack_reads
+        reads, packed_lens = pack_reads(list(batch))
+        lens = packed_lens if lens is None else lens
+    else:
+        reads = np.asarray(batch)
+    if reads.ndim != 2:
+        raise ValueError(f"expected a (B, L) read batch, got shape "
+                         f"{reads.shape}")
+    B = len(reads)
+    if names is None:
+        names = [f"read{r}" for r in range(B)]
+    lens = (np.full(B, reads.shape[1], np.int64) if lens is None
+            else np.asarray(lens, dtype=np.int64))
+    if len(names) != B or len(lens) != B:
+        raise ValueError("names/lens length mismatch with the batch")
+    if B and int(lens.max()) > reads.shape[1]:
+        raise ValueError(f"lens (max {int(lens.max())}) exceed the batch "
+                         f"width {reads.shape[1]}")
+    return reads, list(names), lens
+
+
+# ---------------------------------------------------------------------
+# The facade
+# ---------------------------------------------------------------------
+
+class Aligner:
+    """One mapper object: an FM-index + one ``AlignOptions``.
+
+    Construct via ``from_fasta`` (build in memory), ``from_bundle``
+    (load a persisted index bundle) or ``from_index``
+    (wrap an existing FMIndex/ContigIndex).
+
+    ``device`` overrides ``options.device`` ("cuda" by default; see
+    ``resolve_device``).
+
+    ``telemetry`` opts into pipeline observability (``repro_torch.obs``):
+    ``True`` for stage timers/counters, or a configured
+    ``obs.Telemetry(trace=True)`` to additionally collect Chrome trace
+    events for the whole run.  Off (``None``) by default — the
+    instrumented hot path then costs one thread-local read per stage.
+    """
+
+    def __init__(self, index, options: AlignOptions | None = None, *,
+                 device=None,
+                 telemetry: "obs.Telemetry | bool | None" = None):
+        self.index = index
+        options = options or AlignOptions()
+        dev = resolve_device(options.device if device is None else device)
+        self.options = options.replace(device=str(dev))
+        self._eng = get_engine(self.options.engine)   # fail fast on a bad name
+        if telemetry is True:
+            telemetry = obs.Telemetry()
+        elif telemetry is False:
+            telemetry = None
+        self.telemetry: obs.Telemetry | None = telemetry
+        self._rg: tuple[str, str] | None = None
+        if self.options.read_group:
+            self._rg = parse_read_group(self.options.read_group)
+
+    # -- constructors --
+
+    @classmethod
+    def from_index(cls, index, options: AlignOptions | None = None,
+                   **kw) -> "Aligner":
+        return cls(index, options, **kw)
+
+    @classmethod
+    def from_fasta(cls, path, options: AlignOptions | None = None,
+                   device=None, telemetry=None, **load_kw) -> "Aligner":
+        """Build the FM-index in memory from a (gzipped) FASTA."""
+        from .core.contig import build_contig_index
+        from .io.fasta import load_reference
+        return cls(build_contig_index(load_reference(path, **load_kw)),
+                   options, device=device, telemetry=telemetry)
+
+    @classmethod
+    def from_bundle(cls, prefix, options: AlignOptions | None = None,
+                    **kw) -> "Aligner":
+        """Load a persisted index bundle (``repro_torch.cli index`` or
+        ``repro.cli index`` output)."""
+        from .io.store import load_index
+        return cls(load_index(prefix), options, **kw)
+
+    # -- internals --
+
+    @contextlib.contextmanager
+    def _scope(self):
+        """Ambient telemetry scope for one facade call: a FRESH registry
+        (so the captured numbers are per-call and merge associatively
+        across batches/shards), sharing the run-long trace collector.
+        Yields the registry, or None when telemetry is off."""
+        if self.telemetry is None:
+            yield None
+            return
+        reg = obs.MetricsRegistry()
+        with self.telemetry.activate(reg):
+            yield reg
+
+    def _tag(self, lines: list[str]) -> list[str]:
+        if self._rg is None:
+            return lines
+        rg = f"\tRG:Z:{self._rg[1]}"
+        return [ln + rg for ln in lines]
+
+    def _read_lines(self, name, read, alns) -> list[str]:
+        if not alns:
+            return [format_sam(name, read, None, self.index)]
+        return [format_sam(name, read, a, self.index) for a in alns]
+
+    # -- alignment --
+
+    def align(self, batch, *, names=None, lens=None) -> BatchResult:
+        """Single-end alignment of one batch -> ``BatchResult``.
+
+        ``batch`` is a ``repro_torch.io.stream.ReadBatch``, a (B, L) uint8
+        array, or a list of read strings.  Per-read true lengths are
+        honored: reads are regrouped by length and each group runs at its
+        own width, so the pad bases of a length-padded batch are masked
+        rather than fed to the kernels.
+        """
+        reads, names, lens = _coerce_se(batch, names, lens)
+        eng = self._eng
+        popt = self.options.pipeline_options()
+        B = len(reads)
+        stats = obs.Snapshot()
+        groups = np.unique(lens)
+        with self._scope() as reg:
+            if len(groups) == 1 and int(groups[0]) == reads.shape[1]:
+                # uniform full-width batch (the streaming case): no copy
+                results, st = eng.se(self.index, reads, popt)
+                stats.merge_in(st)
+                body = [self._read_lines(names[r], reads[r], results[r])
+                        for r in range(B)]
+            else:
+                results = [None] * B
+                body = [None] * B
+                for L in groups:
+                    rows = np.nonzero(lens == L)[0]
+                    sub = reads[rows][:, :int(L)]
+                    res, st = eng.se(self.index, sub, popt)
+                    stats.merge_in(st)
+                    for row, alns in zip(rows, res):
+                        results[row] = alns
+                        body[row] = self._read_lines(names[row],
+                                                     reads[row][:int(L)],
+                                                     alns)
+        if reg is not None:
+            stats.merge_in(reg.snapshot())
+        # a Gauge merges by MAX: summing group counts across batches would
+        # be meaningless, the worst per-batch count is the useful summary
+        stats["n_length_groups"] = obs.Gauge(len(groups))
+        flat = self._tag([ln for rl in body for ln in rl])
+        return BatchResult(names=names, lens=lens, stats=stats,
+                           paired=False, alignments=results, _sam_body=flat)
+
+    # -- SAM emission --
+
+    def sam_header(self, cl: str | None = None) -> list[str]:
+        """``@SQ`` lines (+ ``@RG`` when configured, + ``@PG`` when a
+        command line is given)."""
+        extra = []
+        if self._rg is not None:
+            extra.append(self._rg[0])
+        if cl is not None:
+            extra.append(f"@PG\tID:repro\tPN:repro_torch\tVN:{VERSION}"
+                         f"\tCL:{cl}")
+        return _contig_header(self.index, extra=extra)
+
+    def stream_sam(self, batches: Iterable, out=None, *, header: bool = True,
+                   cl: str | None = None) -> dict:
+        """Drive an iterable of ``ReadBatch`` (e.g. from
+        ``repro_torch.io.stream.open_batches``) through the engine and
+        write SAM to ``out`` (a path, a file object, or None for stdout).
+
+        Returns a summary: n_reads/n_records/n_batches plus the merged
+        per-stage stats (an ``obs.Snapshot``).  With telemetry enabled the
+        summary also carries the run-level I/O accounting (``time_io_s``,
+        batch fill/pad-waste) captured around the batch iterator pulls.
+        A paired batch raises: paired-end alignment is not ported yet.
+        """
+        close = False
+        if out is None:
+            fh = sys.stdout
+        elif hasattr(out, "write"):
+            fh = out
+        else:
+            fh = open(out, "w")
+            close = True
+        n_reads = n_records = n_batches = 0
+        stats = obs.Snapshot()
+        it = iter(batches)
+        _end = object()
+        try:
+            if header:
+                for ln in self.sam_header(cl=cl):
+                    print(ln, file=fh)
+            with self._scope() as run_reg:
+                # the run-level scope catches the generator-side io
+                # instrumentation: batch packing executes inside next()
+                while True:
+                    with obs.span("io"):
+                        b = next(it, _end)
+                    if b is _end:
+                        break
+                    if hasattr(b, "reads1"):
+                        raise ValueError("paired-end is not ported yet")
+                    res = self.align(b)
+                    n_reads += len(b)
+                    with obs.span("io"):
+                        for ln in res.sam():
+                            print(ln, file=fh)
+                    n_records += res.n_records
+                    n_batches += 1
+                    stats.merge_in(res.stats)
+            if run_reg is not None:
+                stats.merge_in(run_reg.snapshot())
+            fh.flush()
+        finally:
+            if close:
+                fh.close()
+        return dict(n_reads=n_reads, n_records=n_records,
+                    n_batches=n_batches, stats=stats)

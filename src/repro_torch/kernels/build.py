@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together) and linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``build/repro_torch/`` at the root of the checkout, named by a
+content hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once.
+
+Nothing is built at import time: ``library()`` builds on its first call,
+which is the first kernel launch on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+#: ptxas resource report (registers, spills) of each kernel, kept in build_log
+PTXAS_VERBOSE = ("-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> argtypes (every one returns cudaError_t as int)
+SIGNATURES = {
+    "fmocc_eta32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "fmocc_eta128": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "bsw_extend": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P, _P, _I, _P),
+}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+#: nvcc's output of the last build (the ptxas resource report)
+build_log = ""
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
+
+
+def _build(target: pathlib.Path) -> str:
+    cc = nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [cc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", str(src), "-o",
+                 str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed, logs = [], []
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            logs.append(f"{src.name}:\n{log}")
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = pathlib.Path(tmp) / target.name
+        link = subprocess.run([cc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, target)
+    return "\n".join(logs)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB, build_log
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        path = library_path()
+        if not path.exists():
+            build_log = _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")

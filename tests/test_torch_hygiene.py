@@ -1,0 +1,116 @@
+"""The port stands alone and never hides the device:
+
+* importing every ``repro_torch`` module and ``chip_smoke.py`` loads no
+  JAX and nothing of the ``repro`` package;
+* without a CUDA device the entry points (``Aligner``, ``cli mem``) raise
+  or exit non-zero at their default device instead of running on the CPU;
+* a kernel wrapper given a tensor on any device other than the CPU or a
+  CUDA device raises instead of running its plain version.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api, cli
+from repro_torch.core import fmindex as tfm
+from repro_torch.core.bsw import BSWParams
+from repro_torch.data import make_reference, write_fasta, write_fastq
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.bsw import bsw_call, bsw_extend_kernel
+from repro_torch.kernels.fmocc import occ
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_imports_pull_in_no_jax_and_no_reference():
+    code = f"""
+import importlib, json, runpy, sys
+sys.path.insert(0, {str(ROOT / "src")!r})
+for m in {port_modules()!r}:
+    importlib.import_module(m)
+runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke")
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k == "repro" or k.startswith("repro."))
+print(json.dumps(bad))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert len(port_modules()) > 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    d = tmp_path_factory.mktemp("hygiene")
+    ref = make_reference(3000, seed=1)
+    fa, fq = str(d / "ref.fa"), str(d / "r.fq")
+    write_fasta(fa, ref)
+    write_fastq(fq, np.tile(ref[100:201], (2, 1)))
+    return tfm.build_index(ref), fa, fq, d
+
+
+def test_aligner_without_cuda_raises(no_cuda, tiny):
+    idx = tiny[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.Aligner(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.Aligner(idx, device="cuda:0")
+    with pytest.raises(ValueError, match="unsupported device"):
+        api.Aligner(idx, device="meta")
+    # asking for the CPU explicitly is the one way to run there
+    assert api.Aligner(idx, device="cpu").options.device == "cpu"
+
+
+def test_cli_mem_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
+    _, fa, fq, d = tiny
+    out = d / "out.sam"
+    assert cli.main(["mem", fa, fq, "-o", str(out)]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not out.exists()
+    assert cli.main(["mem", fa, fq, "-o", str(out), "--device", "cpu"]) == 0
+    assert out.exists()
+
+
+def test_wrappers_refuse_meta_tensors(tiny):
+    idx = tiny[0]
+    before = launch_counts()
+    fm_meta = tfm.FMArrays(*(t.to("meta") for t in idx.device("cpu")))
+    c = torch.zeros(8, dtype=torch.int32, device="meta")
+    for layout in ("eta32", "eta128"):
+        with pytest.raises(RuntimeError, match="no kernel for device meta"):
+            occ(fm_meta, c, c, layout=layout)
+    a = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    v = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        bsw_call(a, a, v, v, v, v, BSWParams())
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        bsw_extend_kernel([np.zeros(3, np.uint8)], [np.zeros(3, np.uint8)],
+                          [5], BSWParams(), device="meta")
+    assert launch_counts() == before
