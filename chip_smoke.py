@@ -19,14 +19,17 @@ Phases (each prints one line, any failure raises and exits non-zero):
    fmocc layouts on 2^20 - 24 queries (a count no block size divides;
    uniform i in [-1, N-1] plus every bucket edge +-1 around ``primary``
    and i = N-1) and on the (2, E, 4) queries of every SMEM round of the
-   device stages run on 512 reads; BSW on the first 4 blocks of real
-   extension tasks of those reads and on synthetic blocks with band
-   width 1 and with z-drop triggered.  Times side by side: each kernel's
-   device time (torch.profiler, mean of 20 calls), its wrapper call and
-   its plain version (CUDA events, median of 20); the sweep's device
-   time per launch of each candidate; and the card's busy share while
-   the device stages (SMEM, SAL, chaining, BSW) run on the 512 reads
-   under the profiler;
+   device stages run on 512 reads; BSW on every block of real extension
+   tasks those reads dispatch and on synthetic blocks: band width 1,
+   z-drop triggered, query lengths on strip edges (31-33, 63-65, 127-129
+   at qmax 160) and long queries (qmax 256, tmax 320).  Times side by
+   side: each kernel's device time (torch.profiler, mean of 20 calls; BSW
+   on the first 4 real blocks, and on their tasks repacked into one
+   launch), its wrapper call and its plain version (CUDA events, median
+   of 20); the BSW kernel's registers (ptxas) and shared memory; the
+   sweep's device time per launch of each candidate; and the card's busy
+   share while the device stages (SMEM, SAL, chaining, BSW) run on the
+   512 reads under the profiler;
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
    set to 0 just before and read just after; one primary SAM line per
@@ -71,7 +74,8 @@ from repro_torch.data import (make_reference, simulate_reads,  # noqa: E402
 from repro_torch.io.store import load_index  # noqa: E402
 from repro_torch.io.stream import open_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.bsw.ops import bsw_call, bsw_extend_kernel  # noqa: E402
+from repro_torch.kernels.bsw.ops import (bsw_call,  # noqa: E402
+                                          bsw_extend_kernel, launch_geometry)
 from repro_torch.kernels.bsw.ref import bsw_ref  # noqa: E402
 from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
                                         attach_occ_config, sweep_timings)
@@ -86,6 +90,7 @@ N_CPU_READS = 256
 OCC_QUERIES = (1 << 20) - 24   # a partial last block at every block size
 BSW_REAL_BLOCKS = 4
 TIMING_REPS = 20
+PROFILER_ATTEMPTS = 3
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W).  The
 # int32 rate is not in the table of peaks: an SM issues 64 int32 lanes a
@@ -93,19 +98,21 @@ TIMING_REPS = 20
 # add to count twice, so 64 lanes x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# int32 ALU operations per banded DP cell in csrc/bsw.cu's inner loop (the
-# count its source note lists; loads, stores, loop control and address
-# arithmetic not counted): score 4, M 3, h 2, row max 3, E 4, F 4.
+# int32 ALU operations per banded DP cell of ksw_extend2, the spec
+# (core/bsw.py:bsw_extend's inner loop; loads, stores, loop control and
+# address arithmetic not counted): score 4, M 3, h 2, row max 3, E 4, F 4.
+# The work is the spec's whatever implements it: the warp kernel's scan
+# and ballots are not added.
 BSW_OPS_PER_CELL = 20
 SECTOR = 32                # DRAM access granularity in bytes
 
 KERNELS = {
     "fmocc_eta32": ("src/repro_torch/kernels/csrc/fmocc.cu",
-                    "src/repro/kernels/fmocc/kernel.py:85"),
+                    "src/repro/kernels/fmocc/kernel.py:86"),
     "fmocc_eta128": ("src/repro_torch/kernels/csrc/fmocc.cu",
-                     "src/repro/kernels/fmocc/kernel.py:95"),
+                     "src/repro/kernels/fmocc/kernel.py:96"),
     "bsw": ("src/repro_torch/kernels/csrc/bsw.cu",
-            "src/repro/kernels/bsw/kernel.py:58"),
+            "src/repro/kernels/bsw/kernel.py:61"),
 }
 
 
@@ -150,11 +157,16 @@ def kernel_ms(fn, kernel: str, launches: int) -> float:
     launch it ``launches`` times each."""
     fn()
     torch.cuda.synchronize()
-    _, dev, _ = profiled(lambda: [fn() for _ in range(TIMING_REPS)])
-    us = sum(v for k, v in dev.items() if kernel in k)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time for {kernel}")
-    return us / (TIMING_REPS * launches) / 1e3
+    for attempt in range(PROFILER_ATTEMPTS):
+        _, dev, _ = profiled(lambda: [fn() for _ in range(TIMING_REPS)])
+        us = sum(v for k, v in dev.items() if kernel in k)
+        if us > 0:
+            return us / (TIMING_REPS * launches) / 1e3
+        # torch.profiler can return a session with no device activity at
+        # all; that is a fault of the tracer, not a time: take it again
+        print(f"  profiler: no device time for {kernel} in session "
+              f"{attempt + 1}", flush=True)
+    raise AssertionError(f"the profiler saw no device time for {kernel}")
 
 
 def smi(query: str) -> str:
@@ -239,11 +251,11 @@ def check_occ(idx, dev, rounds: list) -> dict:
     return out
 
 
-def device_stages(idx, reads, dev, n: int = BSW_REAL_BLOCKS):
+def device_stages(idx, reads, dev):
     """The device stages of the mem path on ``reads``: SMEM, SAL and
     chaining as ``run_se_batched`` runs them, then the BSW executor.
-    Returns (the (c, i) queries of every SMEM round, copied, and the
-    first ``n`` packed blocks the executor dispatches)."""
+    Returns (the (c, i) queries of every SMEM round, copied, and every
+    packed block the executor dispatches)."""
     opt = PipelineOptions(device=str(dev))
     lens = np.full(len(reads), reads.shape[1], np.int64)
     occ_fn = attach_occ_config(idx, dev).occ_fn
@@ -267,24 +279,39 @@ def device_stages(idx, reads, dev, n: int = BSW_REAL_BLOCKS):
     blocks = []
 
     def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None):
-        if len(blocks) < n:
-            blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax,
-                                     tmax))
+        blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax, tmax))
         return bsw_extend_kernel(queries, targets, h0s, p, ws, qmax, tmax,
                                  device=dev)
 
     BatchedBSWExecutor(opt.bsw, batch_fn=record,
                        block=opt.bsw_block).plan_and_run(jobs)
-    if len(blocks) < n:
+    if len(blocks) < BSW_REAL_BLOCKS:
         raise AssertionError(f"only {len(blocks)} BSW blocks in the sample")
     return rounds, blocks
 
 
+def related(rng, qlens, tlens):
+    """Queries and targets that copy them with ~5% substitutions, so
+    scores stay high and the band stays wide."""
+    qs, ts = [], []
+    for ql, tl in zip(qlens, tlens):
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        t = rng.integers(0, 4, tl).astype(np.uint8)
+        k = min(ql, tl)
+        t[:k] = np.where(rng.random(k) < 0.05, rng.integers(0, 4, k), q[:k])
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
 def synthetic_bsw_blocks() -> dict:
-    """Two 256-task blocks: band width 1, and z-drop triggered — a 40-bp
-    exact match, a 20-bp unrelated gap and a 100-bp exact match, with
-    Z-drop 20, so the extension stops in the gap.  name -> (packed block,
-    BSWParams)."""
+    """Four 256-task blocks: band width 1; z-drop triggered (a 40-bp exact
+    match, a 20-bp unrelated gap and a 100-bp exact match, with Z-drop 20,
+    so the extension stops in the gap); query lengths on either side of
+    strip edges (31-33, 63-65, 127-129, padded to qmax 160, h0 up to 200 so
+    the first row's fill crosses strips); long queries (qlen 200-256 with
+    a band as wide as the query, padded to qmax 256 and tmax 320).
+    name -> (packed block, BSWParams)."""
     rng = np.random.default_rng(5)
     W = 256
     p = BSWParams()
@@ -301,13 +328,50 @@ def synthetic_bsw_blocks() -> dict:
         t2.append(np.concatenate([head, rng.integers(0, 4, 20), tail]
                                  ).astype(np.uint8))
     pz = BSWParams(zdrop=20)
+    ql3 = [(31, 32, 33, 63, 64, 65, 127, 128, 129)[k % 9] for k in range(W)]
+    q3, t3 = related(rng, ql3, [q + int(rng.integers(-5, 30)) for q in ql3])
+    h3 = rng.integers(1, 200, W).tolist()
+    w3 = [(100, 5, 160)[k % 3] for k in range(W)]
+    ql4 = rng.integers(200, 257, W).tolist()
+    q4, t4 = related(rng, ql4, [int(rng.integers(q, 321)) for q in ql4])
+    h4 = rng.integers(5, 100, W).tolist()
     return {"w1": (pack_tasks(q1, t1, h1, p, [1] * W), p),
-            "zdrop": (pack_tasks(q2, t2, [30] * W, pz), pz)}
+            "zdrop": (pack_tasks(q2, t2, [30] * W, pz), pz),
+            "strip_edge": (pack_tasks(q3, t3, h3, p, w3, qmax=160), p),
+            "long_query": (pack_tasks(q4, t4, h4, p, [256] * W, qmax=256,
+                                      tmax=320), p)}
+
+
+def repack(blocks: list) -> tuple:
+    """The tasks of several packed blocks as one block, padded with code 4
+    to the largest qmax and tmax."""
+    qmax = max(b[0].shape[1] for b in blocks)
+    tmax = max(b[1].shape[1] for b in blocks)
+    pad = lambda a, n: np.pad(a, ((0, 0), (0, n - a.shape[1])),
+                              constant_values=4)
+    return (np.concatenate([pad(b[0], qmax) for b in blocks]),
+            np.concatenate([pad(b[1], tmax) for b in blocks]),
+            *(np.concatenate([b[k] for b in blocks]) for k in range(2, 6)))
+
+
+def ptxas_resources(kernel: str) -> str:
+    """The ptxas report (registers, spills, static shared memory) of the
+    entry function whose name holds ``kernel``, from this run's build
+    (none if the library was loaded as built by an earlier run)."""
+    out, cur = [], None
+    for ln in build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln
+        elif cur and kernel in cur and ("Used" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return " | ".join(out) or "not_built_in_this_run"
 
 
 def check_bsw(blocks: dict, dev) -> dict:
-    """``blocks``: name -> (packed block, BSWParams); the "real*" blocks
-    are timed and bounded."""
+    """``blocks``: name -> (packed block, BSWParams), each held exactly
+    against the plain version; the first ``BSW_REAL_BLOCKS`` "real*"
+    blocks are timed and bounded, one launch at a time and repacked into
+    one launch."""
     out = {}
     dev_blocks = {k: ([torch.from_numpy(a).to(dev) for a in v], bp)
                   for k, (v, bp) in blocks.items()}
@@ -319,25 +383,54 @@ def check_bsw(blocks: dict, dev) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"bsw differs from its plain version on "
                                  f"block {name}")
-    real = [v for k, (v, _) in dev_blocks.items() if k.startswith("real")]
+    real_names = [k for k in dev_blocks if k.startswith("real")]
+    phase("bsw_exact", real_blocks=len(real_names),
+          real_tasks=sum(dev_blocks[k][0][0].shape[0] for k in real_names),
+          synthetic=",".join(k for k in dev_blocks if k not in real_names),
+          max_abs_err=err)
+    timed = real_names[:BSW_REAL_BLOCKS]
+    real = [dev_blocks[k][0] for k in timed]
     p = BSWParams()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = {k: launch_geometry(a[0].shape[0], a[0].shape[1], sms)
+           for k, (a, _) in dev_blocks.items()}
+    phase("bsw_resources", ptxas=ptxas_resources("bsw_kernel").replace(
+        " ", "_"), geometry_ctas_warps_smem=json.dumps(
+        geo, separators=(",", ":")).replace(" ", ""))
     call = cuda_ms(lambda: [bsw_call(*a, p) for a in real]) / len(real)
     ms = kernel_ms(lambda: [bsw_call(*a, p) for a in real], "bsw_kernel",
                    len(real))
     plain = cuda_ms(lambda: [bsw_ref(*a, p) for a in real],
                     reps=5) / len(real)
+    # the same tasks in one launch: exact, then timed
+    one = [torch.from_numpy(a).to(dev)
+           for a in repack([blocks[k][0] for k in timed])]
+    if not torch.equal(bsw_call(*one, p),
+                       torch.cat([bsw_call(*a, p) for a in real], dim=1)):
+        raise AssertionError("bsw differs on the repacked real blocks")
+    one_ms = kernel_ms(lambda: bsw_call(*one, p), "bsw_kernel", 1)
+    phase("bsw_one_launch", tasks=one[0].shape[0], qmax=one[0].shape[1],
+          tmax=one[1].shape[1],
+          geometry=json.dumps(launch_geometry(*one[0].shape, sms),
+                              separators=(",", ":")),
+          kernel_ms=f"{one_ms:.4f}",
+          four_launches_ms=f"{ms * len(real):.4f}")
     # the banded cells these blocks need, counted by the plain version
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
         for a in real:
             bsw_ref(*a, p)
-    cells = int(reg.snapshot().get("bsw_cells_banded", 0))
+    snap = reg.snapshot()
+    cells = int(snap.get("bsw_cells_banded", 0))
+    rows = int(snap.get("bsw_task_rows", 0))
     nbytes = sum(t.numel() * 4 for a in real for t in a) + \
         sum(6 * a[0].shape[0] * 4 for a in real)
     ops_ms = 1e3 * cells * BSW_OPS_PER_CELL / INT32_OPS_PER_S / len(real)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S / len(real)
-    phase("bsw", blocks=",".join(dev_blocks), tasks_real=sum(
-        a[0].shape[0] for a in real), cells_real=cells, max_abs_err=err,
+    phase("bsw", blocks=",".join(timed), tasks_real=sum(
+        a[0].shape[0] for a in real), cells_real=cells, task_rows_real=rows,
+        cells_per_row=f"{cells / max(rows, 1):.1f}",
+        tmax_real=",".join(str(a[1].shape[1]) for a in real), max_abs_err=err,
         kernel_ms_per_block=f"{ms:.4f}", call_ms_per_block=f"{call:.4f}",
         plain_ms_per_block=f"{plain:.4f}",
         bound_ms_per_block=f"{max(ops_ms, bytes_ms):.6f}")

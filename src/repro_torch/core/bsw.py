@@ -4,7 +4,8 @@ The scalar oracle ``bsw_extend`` is a direct port of bwa-0.7.x
 ``ksw_extend2`` (including band shrinking, z-drop, first-row/column
 initialisation and the exact tie-breaking of max tracking).  It is the
 output SPEC: every other implementation must match it bit-for-bit — the
-``bsw`` CUDA kernel runs this loop, one thread per task.
+``bsw`` CUDA kernel runs this loop one warp per task, a row in strips of
+32 columns with F as the prefix max below.
 
 ``bsw_init_state``/``bsw_row_step`` are the plain PyTorch lockstep batch
 (the counterpart of ``repro.core.bsw``'s): W tasks form the batch
@@ -296,6 +297,7 @@ def bsw_row_step(i: int, st, qs, ts, qlens, tlens, h0s, ws,
     if obs.enabled():
         obs.count("bsw_cells_banded",
                   int(((end - beg).clamp(min=0) * act).sum()))
+        obs.count("bsw_task_rows", int(act.sum()))
     return (eh_h, eh_e,
             torch.where(keep, beg_n, beg_st),
             torch.where(keep, end_n, end_st),

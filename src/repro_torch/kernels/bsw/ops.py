@@ -3,8 +3,9 @@
 
 ``bsw_call`` is the wrapper over packed task arrays.  For tensors on the
 CPU it runs the plain PyTorch version (``ref.bsw_ref``); for tensors on a
-CUDA device it launches the kernel and raises if the library does not
-build or the launch fails; any other device raises.
+CUDA device it launches the kernel, one warp a task, and raises if the
+library does not build, the launch fails or one task's rows do not fit in
+shared memory (ValueError); any other device raises.
 
 ``bsw_extend_kernel`` is the pipeline's ``batch_fn``: it packs a block of
 tasks (``core.bsw.pack_tasks``, which applies ``adjusted_band`` on the
@@ -23,17 +24,45 @@ from ...core.bsw import BSWParams, ExtResult, pack_tasks
 from .. import build
 from .ref import bsw_ref
 
-#: threads (tasks) per block: small blocks spread a 256-task launch over
-#: more SMs, since each thread runs a whole extension
-BLOCK = 32
+#: dynamic shared memory one CTA may opt into on Hopper (H100, H200)
+SMEM_LIMIT = 232_448
+#: most tasks (warps) a CTA.  A task's rows are one dependent chain that
+#: keeps one warp busy, so a launch spreads its tasks evenly over the SMs
+#: (``launch_geometry``); the cap keeps the CTAs of a large launch small,
+#: since a CTA holds its shared memory until its longest task ends.
+MAX_WARPS = 8
 
 #: kernel launches by kernel name (reset by kernels.reset_launch_counts)
 LAUNCHES = {"bsw": 0}
 
 
+def warp_smem_bytes(qmax: int) -> int:
+    """Shared memory of one task: the H and E rows as int32 and the query
+    codes as bytes over columns 0..qmax (H[end] is written), padded to a
+    multiple of the kernel's 4 columns a lane, rounded up to 16 bytes so
+    every warp's slice stays aligned for 16-byte loads."""
+    ncol = -(-(qmax + 1) // 4) * 4
+    return -(-9 * ncol // 16) * 16
+
+
+def launch_geometry(W: int, qmax: int, sms: int) -> tuple[int, int, int]:
+    """(CTAs, warps a CTA, dynamic shared-memory bytes a CTA) of a launch
+    of W tasks padded to ``qmax`` on a card with ``sms`` SMs: one warp a
+    task, ceil(W / sms) warps a CTA (at most ``MAX_WARPS`` and as many as
+    fit in ``SMEM_LIMIT``), so the CTAs land on as many SMs as there are.
+    Raises ValueError if one task's rows do not fit."""
+    per_warp = warp_smem_bytes(qmax)
+    if per_warp > SMEM_LIMIT:
+        raise ValueError(f"bsw: qmax {qmax} needs {per_warp} bytes of shared "
+                         f"memory a task, more than the {SMEM_LIMIT} a CTA "
+                         f"can have")
+    warps = min(MAX_WARPS, max(1, -(-W // sms)), SMEM_LIMIT // per_warp)
+    return -(-W // warps), warps, warps * per_warp
+
+
 def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
              tlens: torch.Tensor, h0s: torch.Tensor, ws: torch.Tensor,
-             p: BSWParams, *, block: int = BLOCK) -> torch.Tensor:
+             p: BSWParams) -> torch.Tensor:
     """qs (W, qmax) / ts (W, tmax) int32 (pad code 4); qlens, tlens, h0s,
     ws (W,) int32, ws already band-adjusted -> (6, W) int32 rows score,
     qle, tle, gtle, gscore, max_off."""
@@ -50,18 +79,16 @@ def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
             raise ValueError(f"bsw: {name} must be contiguous int32 on {dev}")
     if ts.shape[0] != W or any(t.shape != (W,) for t in args[2:]):
         raise ValueError("bsw: task arrays disagree on W")
-    if block % 32 or not 32 <= block <= 1024:
-        raise ValueError(f"block {block} must be a multiple of 32 in [32, 1024]")
+    ctas, warps, smem = launch_geometry(
+        W, qmax, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((6, W), dtype=torch.int32, device=dev)
     if W == 0:
         return out
-    eh_h = torch.empty((qmax + 1, W), dtype=torch.int32, device=dev)
-    eh_e = torch.empty((qmax + 1, W), dtype=torch.int32, device=dev)
     lib = build.library()
     err = lib.bsw_extend(
         *(t.data_ptr() for t in args), W, qmax, tmax, p.a, p.b, p.o_del,
-        p.e_del, p.o_ins, p.e_ins, p.zdrop, eh_h.data_ptr(), eh_e.data_ptr(),
-        out.data_ptr(), block, torch.cuda.current_stream(dev).cuda_stream)
+        p.e_del, p.o_ins, p.e_ins, p.zdrop, out.data_ptr(), ctas, warps,
+        smem // warps, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "bsw")
     LAUNCHES["bsw"] += 1
     return out

@@ -36,7 +36,7 @@ SIGNATURES = {
     "fmocc_eta32": (_P, _P, _P, _P, _P, _I, _I, _P),
     "fmocc_eta128": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "bsw_extend": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P, _P, _P, _I, _P),
+                   _I, _I, _P, _I, _I, _I, _P),
 }
 
 _LOCK = threading.Lock()

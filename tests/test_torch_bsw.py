@@ -126,3 +126,102 @@ def test_pack_tasks_layout():
     assert out.shape == (6, 4) and out.dtype == torch.int32
     assert torch.equal(out, bsw_ref(*(torch.from_numpy(a) for a in
                                       (q, t, ql, tl, h0, ws)), p))
+
+
+def _related(rng, qlens, tlens, hi=4):
+    """Targets that copy their query with ~5% substitutions, so scores stay
+    high and the band stays wide."""
+    qs, ts = [], []
+    for ql, tl in zip(qlens, tlens):
+        q = rng.integers(0, hi, ql).astype(np.uint8)
+        t = rng.integers(0, hi, tl).astype(np.uint8)
+        k = min(ql, tl)
+        t[:k] = np.where(rng.random(k) < 0.05, rng.integers(0, hi, k), q[:k])
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+def _hard_case(name):
+    """The shapes the warp-per-task kernel finds hard: name -> (queries,
+    targets, h0s, ws, BSWParams, also check the Pallas kernel)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "strip_edges":       # qlen on either side of 32 and 64
+        ql = [31, 32, 33, 63, 64, 65]
+        qs, ts = _related(rng, ql, [q + int(rng.integers(-5, 20)) for q in ql])
+        return qs, ts, [int(v) for v in rng.integers(5, 60, 6)], None, \
+            BSWParams(), True
+    if name == "long_rows":         # qmax 256, tmax 300, a band as wide as
+        ql, tl = [256, 250, 231, 200], [300, 290, 270, 256]  # the query:
+        qs, ts = _related(rng, ql, tl)                       # 8 strips a row
+        return qs, ts, [40, 1, 90, 25], [256] * 4, BSWParams(), False
+    if name == "first_row_fill":    # h0 - oe_ins > 32 e_ins: the fill of
+        ql = [40, 70, 100, 130]     # row 0 runs past the first strips
+        qs, ts = _related(rng, ql, [q // 2 for q in ql])
+        return qs, ts, [60, 100, 150, 200], None, BSWParams(), True
+    if name == "band_one_long":     # w = 1 on a long query
+        ql = [160, 200, 97, 130]
+        qs, ts = _related(rng, ql, [q + 3 for q in ql])
+        return qs, ts, [30, 5, 70, 12], [1] * 4, BSWParams(), False
+    if name == "ambiguous":         # code 4 in queries and targets
+        ql = [33, 40, 64, 65, 20, 90]
+        qs, ts = _related(rng, ql, [q + 8 for q in ql], hi=5)
+        return qs, ts, [int(v) for v in rng.integers(1, 80, 6)], None, \
+            BSWParams(zdrop=50), True
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["strip_edges", "long_rows",
+                                  "first_row_fill", "band_one_long",
+                                  "ambiguous"])
+def test_plain_on_kernel_hard_shapes(name):
+    """The plain version on strip edges, long rows, a first-row fill across
+    strips, a band of width 1 on a long query and ambiguous codes on both
+    sides, against the reference's scalar oracle and (small shapes) its
+    Pallas kernel in interpret mode."""
+    qs, ts, h0s, ws, p, pallas = _hard_case(name)
+    rp = RParams(zdrop=p.zdrop)
+    if name == "first_row_fill":
+        assert all(h - p.o_ins - p.e_ins > 32 * p.e_ins for h in h0s)
+    if name == "ambiguous":
+        assert all((q == 4).any() and (t == 4).any() for q, t in zip(qs, ts))
+    got = bsw_extend_kernel(qs, ts, h0s, p, ws=ws, device="cpu")
+    wid = [p.w if ws is None else w for w in (ws or [None] * len(qs))]
+    assert as_tuples(got) == as_tuples(
+        [r_extend(q, t, h0, rp, w) for q, t, h0, w in zip(qs, ts, h0s, wid)])
+    if pallas:
+        assert as_tuples(got) == as_tuples(
+            bsw_extend_pallas(qs, ts, h0s, rp, ws=ws))
+
+
+@pytest.mark.parametrize("W,qmax,sms,want", [
+    (256, 101, 132, (128, 2, 2 * 944)),     # a real block: 2 warps a CTA
+    (844, 160, 132, (121, 7, 7 * 1488)),    # four real blocks in one launch
+    (1, 1, 132, (1, 1, 48)),
+    (100, 256, 132, (100, 1, 2352)),        # fewer tasks than SMs
+    (5000, 64, 132, (625, 8, 8 * 624)),     # capped at MAX_WARPS
+    (300, 15000, 132, (300, 1, 135040)),    # two tasks' rows do not fit
+    (40, 128, 16, (14, 3, 3 * 1200)),       # another SM count
+])
+def test_launch_geometry(W, qmax, sms, want):
+    from repro_torch.kernels.bsw.ops import (SMEM_LIMIT, launch_geometry,
+                                             warp_smem_bytes)
+    ctas, warps, smem = launch_geometry(W, qmax, sms)
+    assert (ctas, warps, smem) == want
+    per_warp = warp_smem_bytes(qmax)
+    assert per_warp % 16 == 0 and per_warp >= 9 * (qmax + 1)
+    assert smem == warps * per_warp <= SMEM_LIMIT
+    assert ctas == -(-W // warps)
+
+
+def test_launch_geometry_rejects_rows_too_long():
+    """One task's H/E rows and query must fit in a CTA's shared memory;
+    otherwise the wrapper raises, with no fallback."""
+    from repro_torch.kernels.bsw.ops import SMEM_LIMIT, launch_geometry
+    # 9 bytes a column (H, E, query) over qmax + 1 columns rounded up to 4
+    qmax = SMEM_LIMIT // 36 * 4 - 1
+    assert launch_geometry(1, qmax, 132) == (1, 1, 9 * (qmax + 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_geometry(1, qmax + 1, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_geometry(256, 1 << 20, 132)
