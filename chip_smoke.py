@@ -15,21 +15,25 @@ Phases (each prints one line, any failure raises and exits non-zero):
    synthesized with ``make_reference(4_641_652, seed=42)``) written as
    FASTA and indexed by ``repro_torch.cli index``;
 4. kernels against their plain versions on the card, exactly, under
-   every (layout, threads per block) candidate of the occ sweep: both
-   fmocc layouts on 2^20 - 24 queries (a count no block size divides;
-   uniform i in [-1, N-1] plus every bucket edge +-1 around ``primary``
-   and i = N-1) and on the (2, E, 4) queries of every SMEM round of the
-   device stages run on 512 reads; BSW on every block of real extension
-   tasks those reads dispatch and on synthetic blocks: band width 1,
-   z-drop triggered, query lengths on strip edges (31-33, 63-65, 127-129
-   at qmax 160) and long queries (qmax 256, tmax 320).  Times side by
-   side: each kernel's device time (torch.profiler, mean of 20 calls; BSW
-   on the first 4 real blocks, and on their tasks repacked into one
-   launch), its wrapper call and its plain version (CUDA events, median
-   of 20); the BSW kernel's registers (ptxas) and shared memory; the
-   sweep's device time per launch of each candidate; and the card's busy
-   share while the device stages (SMEM, SAL, chaining, BSW) run on the
-   512 reads under the profiler;
+   every (layout, threads per block) candidate of the occ sweep: the
+   fused SMEM round kernel in both layouts and both directions on 2^17
+   synthetic entries plus edge entries (k-1 and k+s-1 at -1, 0, N-2, N-1,
+   every bucket edge +-1 around ``primary``; s = 0; c in 0..4) and on the
+   compacted entries of every SMEM round of the device stages run on 512
+   reads; BSW on every block of real extension tasks those reads
+   dispatch and on synthetic blocks: band width 1, z-drop triggered,
+   query lengths on strip edges (31-33, 63-65, 127-129 at qmax 160) and
+   long queries (qmax 256, tmax 320).  Times side by side: each kernel's
+   device time (torch.profiler, mean of 20 calls; the round kernel warm,
+   as the main path finds the index in L2, and cold, with L2 flushed
+   between launches by writing a 256-MB buffer (on the synthetic entries
+   also by reading it), on the synthetic entries and on the largest and
+   the median real round; BSW on the first 4 real blocks, and on their tasks
+   repacked into one launch), its wrapper call and its plain version
+   (CUDA events, median of 20); each kernel's registers (ptxas) and the
+   BSW kernel's shared memory; the sweep's device time per launch of each
+   candidate; and the card's busy share while the device stages (SMEM,
+   SAL, chaining, BSW) run on the 512 reads under the profiler;
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
    set to 0 just before and read just after; one primary SAM line per
@@ -68,6 +72,7 @@ from repro_torch.core.contig import contig_edges  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
                                        PipelineOptions)
 from repro_torch.core.sal import seeds_from_intervals  # noqa: E402
+from repro_torch.core import smem as smem_mod  # noqa: E402
 from repro_torch.core.smem import collect_smems_batch  # noqa: E402
 from repro_torch.data import (make_reference, simulate_reads,  # noqa: E402
                               write_fasta, write_fastq)
@@ -78,16 +83,20 @@ from repro_torch.kernels.bsw.ops import (bsw_call,  # noqa: E402
                                           bsw_extend_kernel, launch_geometry)
 from repro_torch.kernels.bsw.ref import bsw_ref  # noqa: E402
 from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
-                                        attach_occ_config, sweep_timings)
-from repro_torch.kernels.fmocc.ops import occ  # noqa: E402
-from repro_torch.kernels.fmocc.ref import occ_ref  # noqa: E402
+                                        attach_occ_config, sweep_entries,
+                                        sweep_timings)
+from repro_torch.kernels.fmocc.ops import (DIRECTIONS, LAYOUTS,  # noqa: E402
+                                           ext_round)
+from repro_torch.kernels.fmocc.ref import ext_round_ref  # noqa: E402
 
 REF_LEN = 4_641_652        # E. coli K-12 MG1655 (NC_000913.3)
 N_READS = 2048             # one batch, ~1/50 of bwa's 10-Mbase -K chunk
 READ_LEN = 101
 N_SAMPLE_READS = 512
 N_CPU_READS = 256
-OCC_QUERIES = (1 << 20) - 24   # a partial last block at every block size
+EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
+#: written between two launches of a cold timing: more than twice the L2
+L2_FLUSH_BYTES = 256 << 20
 BSW_REAL_BLOCKS = 4
 TIMING_REPS = 20
 PROFILER_ATTEMPTS = 3
@@ -107,10 +116,10 @@ BSW_OPS_PER_CELL = 20
 SECTOR = 32                # DRAM access granularity in bytes
 
 KERNELS = {
-    "fmocc_eta32": ("src/repro_torch/kernels/csrc/fmocc.cu",
-                    "src/repro/kernels/fmocc/kernel.py:86"),
-    "fmocc_eta128": ("src/repro_torch/kernels/csrc/fmocc.cu",
-                     "src/repro/kernels/fmocc/kernel.py:96"),
+    "fmocc_ext_eta32": ("src/repro_torch/kernels/csrc/fmocc.cu",
+                        "src/repro/kernels/fmocc/kernel.py:86"),
+    "fmocc_ext_eta128": ("src/repro_torch/kernels/csrc/fmocc.cu",
+                         "src/repro/kernels/fmocc/kernel.py:96"),
     "bsw": ("src/repro_torch/kernels/csrc/bsw.cu",
             "src/repro/kernels/bsw/kernel.py:61"),
 }
@@ -179,94 +188,147 @@ def smi(query: str) -> str:
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def occ_queries(idx, dev):
-    """``OCC_QUERIES`` (c, i): every bucket edge +-1 around ``primary`` in
-    both layouts, i = -1, 0, N-2, N-1 for all four bases, the rest
-    uniform."""
-    N, prim = int(idx.N), int(idx.primary)
-    edge = {-1, 0, N - 2, N - 1, prim - 1, prim, prim + 1}
+def edge_entries(N: int, primary: int) -> np.ndarray:
+    """(4, m) int32 (k, l, s, c) entries whose positions k-1 or k+s-1 sit
+    at i = -1, 0, N-2, N-1, primary +-1 and every bucket edge +-1 of both
+    layouts around ``primary``: for each such i and each c in 0..4, k-1 =
+    i with s = 0 and s = 3, and k+s-1 = i; l = k, so both directions read
+    inside the index."""
+    edge = {-1, 0, N - 2, N - 1, primary - 1, primary, primary + 1}
     for eta in (32, 128):
-        for b in range(prim // eta - 1, prim // eta + 3):
+        for b in range(primary // eta - 1, primary // eta + 3):
             edge.update((b * eta - 2, b * eta - 1, b * eta))
-    fixed = sorted(i for i in edge if -1 <= i <= N - 1)
-    rng = np.random.default_rng(1)
-    c = rng.integers(0, 4, OCC_QUERIES, dtype=np.int32)
-    i = rng.integers(-1, N - 1, OCC_QUERIES, dtype=np.int32, endpoint=True)
-    k = 4 * len(fixed)
-    c[:k] = np.tile(np.arange(4, dtype=np.int32), len(fixed))
-    i[:k] = np.repeat(np.asarray(fixed, np.int32), 4)
-    return (torch.from_numpy(c).to(dev), torch.from_numpy(i).to(dev))
+    cols = []
+    for i in sorted(i for i in edge if -1 <= i <= N - 1):
+        for k, s in ((i + 1, 0), (i + 1, min(3, N - i - 1)),
+                     (i + 1 - min(5, i + 1), min(5, i + 1))):
+            cols.extend((k, k, s, c) for c in range(5))
+    return np.asarray(cols, np.int32).T
 
 
-def occ_bound_ms(c, i, layout: str) -> float:
-    """Least time for these queries: c and i read and Occ written once
-    (12 B a query) plus every distinct 32-B sector of the count table and
-    every distinct bucket row the queries touch, over the HBM rate."""
+def ext_bound_ms(st: torch.Tensor, which: str, layout: str) -> float:
+    """Least time for one round on the (4, n) entries ``st``: k, l, s, c
+    read and k', l', s' written once (28 B an entry) plus every distinct
+    32-B sector of the count table and every distinct bucket row that the
+    entries' two positions touch, over the HBM rate."""
     shift = 5 if layout == "eta32" else 7
-    b = (i + 1) >> shift
+    k = st[0] if which == "bwd" else st[1]
+    b = torch.cat([k, k + st[2]]) >> shift
     count_sectors = torch.unique(b >> 1).numel()   # 16 B of counts a bucket
     rows = torch.unique(b).numel()                 # one 32-B row a bucket
-    nbytes = 12 * c.numel() + SECTOR * (count_sectors + rows)
+    nbytes = 28 * st.shape[1] + SECTOR * (count_sectors + rows)
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def check_occ(idx, dev, rounds: list) -> dict:
-    """Both layouts against the plain version on the synthetic queries and
-    on ``rounds`` (the (c, i) of real SMEM rounds), under every sweep
-    candidate's block size; then timed and bounded on the synthetic ones."""
+def check_ext(idx, dev, rounds: list) -> dict:
+    """The round kernel against its plain version, exactly, in both
+    layouts and both directions under every sweep candidate, on the
+    synthetic and edge entries and on ``rounds`` (the (4, n) entries of
+    real SMEM rounds); then timed and bounded per layout on the synthetic
+    entries and on the largest and the median real round."""
     fm = idx.device(dev)
-    c, i = occ_queries(idx, dev)
-    out = {}
+    N, prim = int(idx.N), int(idx.primary)
+    syn = torch.from_numpy(np.concatenate(
+        [sweep_entries(N, EXT_ENTRIES, 1), edge_entries(N, prim)],
+        axis=1)).to(dev)
+    inputs = [("synthetic", syn)] + [(f"round{r}", st)
+                                     for r, (_, st) in enumerate(rounds)]
     errs = {}
-    for layout, block in SWEEP_CANDIDATES:
-        for tag, (cq, iq) in [("synthetic", (c, i))] + [
-                (f"round{r}", q) for r, q in enumerate(rounds)]:
-            got = occ(fm, cq, iq, layout=layout, block=block)
-            want = occ_ref(fm, cq, iq, layout=layout)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"fmocc_{layout} (block {block}) differs from its plain "
-                    f"version on {tag} at {int((got != want).sum())} of "
-                    f"{cq.numel()} queries")
-            if got.numel():
-                errs[layout] = max(errs.get(layout, 0),
-                                   int((got - want).abs().max()))
-    sizes = sorted(q[0].numel() for q in rounds)
-    phase("occ_exact", candidates=len(SWEEP_CANDIDATES),
-          synthetic_queries=c.numel(), real_rounds=len(rounds),
-          real_queries_min=sizes[0], real_queries_median=sizes[len(sizes) // 2],
-          real_queries_max=sizes[-1], max_abs_err=json.dumps(errs))
-    for layout in ("eta32", "eta128"):
-        err = errs[layout]          # the synthetic queries are never empty
-        call = cuda_ms(lambda: occ(fm, c, i, layout=layout))
-        ms = kernel_ms(lambda: occ(fm, c, i, layout=layout),
-                       f"occ_{layout}_kernel", 1)
-        plain = cuda_ms(lambda: occ_ref(fm, c, i, layout=layout))
-        bound = occ_bound_ms(c, i, layout)
-        phase("occ", layout=layout, queries=c.numel(), max_abs_err=err,
-              kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
-              plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}")
-        out[f"fmocc_{layout}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bound, bound_by="bytes")
+    for layout in LAYOUTS:
+        blocks = [b for la, b in SWEEP_CANDIDATES if la == layout]
+        for which in DIRECTIONS:
+            for tag, st in inputs:
+                want = ext_round_ref(fm, which, *st, layout=layout)
+                for block in blocks:
+                    got = ext_round(fm, which, *st, layout=layout,
+                                    block=block)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"fmocc_ext_{layout} {which} (block {block}) "
+                            f"differs from its plain version on {tag} at "
+                            f"{int((got != want).any(0).sum())} of "
+                            f"{st.shape[1]} entries")
+                    errs[layout] = max(errs.get(layout, 0),
+                                       int((got - want).abs().max()))
+    sizes = sorted(st.shape[1] for _, st in rounds)
+    phase("ext_exact", candidates=len(SWEEP_CANDIDATES), directions=2,
+          synthetic_entries=syn.shape[1], real_rounds=len(rounds),
+          real_entries=sum(sizes), real_entries_min=sizes[0],
+          real_entries_median=sizes[len(sizes) // 2],
+          real_entries_max=sizes[-1], max_abs_err=json.dumps(errs))
+    by_size = sorted(rounds, key=lambda r: r[1].shape[1])
+    real = {"largest": by_size[-1], "median": by_size[len(by_size) // 2]}
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    out = {}
+    for layout in LAYOUTS:
+        name = f"fmocc_ext_{layout}"
+
+        def run(st, which="bwd"):
+            return ext_round(fm, which, *st, layout=layout)
+
+        def cold(st, which="bwd"):
+            flush.fill_(1)
+            return run(st, which)
+
+        def cold_read(st, which="bwd"):
+            # L2 refilled with clean lines: no write-back of the flush's
+            # dirty lines competes with the kernel's misses
+            flush.sum()
+            return run(st, which)
+        ms = kernel_ms(lambda: run(syn), "ext_round_kernel", 1)
+        cold_ms = kernel_ms(lambda: cold(syn), "ext_round_kernel", 1)
+        cold_read_ms = kernel_ms(lambda: cold_read(syn), "ext_round_kernel",
+                                 1)
+        call = cuda_ms(lambda: run(syn))
+        plain = cuda_ms(lambda: ext_round_ref(fm, "bwd", *syn, layout=layout))
+        bound = ext_bound_ms(syn, "bwd", layout)
+        phase("ext", layout=layout, entries=syn.shape[1], direction="bwd",
+              max_abs_err=errs[layout], kernel_ms=f"{ms:.4f}",
+              cold_kernel_ms=f"{cold_ms:.4f}",
+              cold_read_kernel_ms=f"{cold_read_ms:.4f}", call_ms=f"{call:.4f}",
+              plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.6f}",
+              cold_share_of_bound=f"{bound / cold_ms:.3f}",
+              warm=("L2-resident_below_the_HBM_bound" if ms < bound
+                    else f"{bound / ms:.3f}_of_bound"),
+              ptxas=ptxas_resources("ext_round_kernel",
+                                    layout.capitalize()).replace(" ", "_"))
+        for tag, (which, st) in real.items():
+            warm = kernel_ms(lambda: run(st, which), "ext_round_kernel", 1)
+            flushed = kernel_ms(lambda: cold(st, which), "ext_round_kernel",
+                                1)
+            phase("ext_real", layout=layout, round=tag, direction=which,
+                  entries=st.shape[1], kernel_ms=f"{warm:.4f}",
+                  cold_kernel_ms=f"{flushed:.4f}",
+                  call_ms=f"{cuda_ms(lambda: run(st, which)):.4f}",
+                  bound_ms=f"{ext_bound_ms(st, which, layout):.6f}")
+        out[name] = dict(max_abs_err=errs[layout], ms=ms, cold_ms=cold_ms,
+                         plain_ms=plain, bound_ms=bound, bound_by="bytes")
+    del flush
     return out
 
 
 def device_stages(idx, reads, dev):
     """The device stages of the mem path on ``reads``: SMEM, SAL and
     chaining as ``run_se_batched`` runs them, then the BSW executor.
-    Returns (the (c, i) queries of every SMEM round, copied, and every
-    packed block the executor dispatches)."""
+    Returns (the direction and the compacted (k, l, s, c) entries of
+    every SMEM round, as ``ext_round`` got them, and every packed block
+    the executor dispatches)."""
     opt = PipelineOptions(device=str(dev))
     lens = np.full(len(reads), reads.shape[1], np.int64)
     occ_fn = attach_occ_config(idx, dev).occ_fn
     rounds = []
 
-    def recording_occ(fm, c, i):
-        rounds.append((c.clone(), i.clone()))
-        return occ_fn(fm, c, i)
-    recording_occ.device = occ_fn.device
-    mems = collect_smems_batch(idx, reads, lens, opt.mem,
-                               occ_fn=recording_occ)
+    def recording(fm, which, k, l, s, c, **kw):
+        # references, not copies: a round's entries are a tensor of their
+        # own that nothing writes after the launch, and a copy here would
+        # add device work to the profiled stages
+        rounds.append((which, (k, l, s, c)))
+        return ext_round(fm, which, k, l, s, c, **kw)
+    smem_mod.ext_round = recording
+    try:
+        mems = collect_smems_batch(idx, reads, lens, opt.mem, occ_fn=occ_fn)
+    finally:
+        smem_mod.ext_round = ext_round
     seeds, _ = seeds_from_intervals(idx, mems, opt.mem.max_occ, device=dev)
     edges = contig_edges(idx)
     jobs = []
@@ -354,15 +416,17 @@ def repack(blocks: list) -> tuple:
             *(np.concatenate([b[k] for b in blocks]) for k in range(2, 6)))
 
 
-def ptxas_resources(kernel: str) -> str:
+def ptxas_resources(*names: str) -> str:
     """The ptxas report (registers, spills, static shared memory) of the
-    entry function whose name holds ``kernel``, from this run's build
-    (none if the library was loaded as built by an earlier run)."""
+    entry function whose mangled name holds every one of ``names``, from
+    this run's build (none if the library was loaded as built by an
+    earlier run)."""
     out, cur = [], None
     for ln in build.build_log.splitlines():
         if "Compiling entry function" in ln:
             cur = ln
-        elif cur and kernel in cur and ("Used" in ln or "spill" in ln):
+        elif cur and all(n in cur for n in names) and (
+                "Used" in ln or "spill" in ln):
             out.append(ln.split(":", 1)[-1].strip())
     return " | ".join(out) or "not_built_in_this_run"
 
@@ -530,7 +594,8 @@ def main() -> int:
               device_busy=f"{sum(dev_us.values()) / 1e6 / wall:.4f}",
               top=json.dumps({k[:40]: round(v / 1e3, 2) for k, v in top},
                              separators=(",", ":")))
-        results = check_occ(idx, dev, rounds)
+        results = check_ext(idx, dev, [(which, torch.stack(st))
+                                       for which, st in rounds])
         del rounds
         blocks = {f"real{j}": (b, BSWParams())
                   for j, b in enumerate(sample)}
@@ -559,7 +624,7 @@ def main() -> int:
         if not isinstance(picked, str):
             raise AssertionError(f"mem ran {len(picked)} batches, not one")
         picked = picked.split("/")[0]
-        for k in (f"fmocc_{picked}", "bsw"):
+        for k in (f"fmocc_ext_{picked}", "bsw"):
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"main path")
@@ -600,7 +665,8 @@ def main() -> int:
                        "replaces": replaces, "launches": launches[name],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                       "bound_by": r["bound_by"], "library_ms": None})
+                       "bound_by": r["bound_by"], "library_ms": None,
+                       "cold_ms": r.get("cold_ms")})
     phase("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": report}), flush=True)

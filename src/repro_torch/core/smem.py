@@ -5,10 +5,12 @@ The PyTorch counterpart of ``repro.core.smem``'s batched half:
 the paper's *batched* reorganization (§3.1 + §4.3): many independent
 (read, start-position) SMEM tasks advance in lockstep rounds; each round
 performs ONE vectorized backward/forward extension for every live task.
-The task state stays on the host in numpy int64; each round sends
-(k, l, s, c) to the index's device as int32, runs the extension there
-(its occ lookups through the fmocc kernel, one launch per round) and
-brings (k', l', s') back — one device round trip per round.
+The task state stays on the host in numpy int64.  Each round sends
+only its live entries — the ones whose results the loop reads — to the
+index's device as one (4, n) int32 (k, l, s, c) tensor, runs the whole
+extension there (``kernels.fmocc.ext_round``: one launch of the fused
+round kernel, every occ lookup inside it) and brings (3, n) (k', l', s')
+back in one copy — one device round trip per round.
 
 An SMEM is reported as (k, l, s, qbeg, qend): bi-interval + query span.
 """
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from .fmindex import FMIndex, backward_ext_v, forward_ext_v
+from ..kernels.fmocc.ops import ext_round
+from .fmindex import FMIndex
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,25 +77,32 @@ class SmemTaskBatch:
     ret: np.ndarray    # (T,) next x
 
 
-def _ext_round(idx: FMIndex, which: str, k, l, s, c, occ_fn):
-    """One vectorized extension round on ``occ_fn``'s device.
+def _ext_round(idx: FMIndex, which: str, k, l, s, c, occ_fn, live):
+    """One extension round on ``occ_fn``'s device, of the entries in
+    ``live``.
 
-    ``occ_fn`` is a device occ callable carrying ``.device``
-    (``kernels.fmocc.make_occ_fn``): the round's state goes to that
-    device as ONE int32 (4, ...) tensor, the extension runs there with
-    every occ lookup through ``occ_fn``, and (k', l', s') come back as
-    one int64 copy."""
+    ``occ_fn`` is a configuration callable carrying ``.layout``,
+    ``.block`` and ``.device`` (``kernels.fmocc.make_occ_fn``).  k, l, s
+    and c broadcast to ``live``'s shape; the entries where ``live`` holds
+    go to the device as ONE int32 (4, n) tensor, ``ext_round`` extends
+    them there, and (k', l', s') come back as one (3, n) copy, scattered
+    into int64 arrays of ``live``'s shape.  The other positions hold 0:
+    the callers read no result outside ``live``."""
     obs.count("smem_rounds")
-    fn = forward_ext_v if which == "fwd" else backward_ext_v
-    host = np.stack(np.broadcast_arrays(k, l, s, np.clip(c, 0, 4)))
-    host = host.astype(np.int32)
-    dev = occ_fn.device
-    st = torch.from_numpy(host).to(dev)
-    out = torch.stack(fn(idx.device(dev), st[0], st[1], st[2], st[3],
-                         occ_fn=occ_fn)).cpu().numpy()
-    obs.count("smem_h2d_bytes", host.nbytes)
-    obs.count("smem_d2h_bytes", out.nbytes)
-    out = out.astype(np.int64)
+    out = np.zeros((3, *live.shape), np.int64)
+    sel = np.nonzero(live)
+    n = len(sel[0])
+    if n:
+        host = np.empty((4, n), np.int32)
+        for row, a in zip(host, (k, l, s, c)):
+            row[:] = np.broadcast_to(a, live.shape)[sel]
+        dev = occ_fn.device
+        st = torch.from_numpy(host).to(dev)
+        got = ext_round(idx.device(dev), which, *st, layout=occ_fn.layout,
+                        block=occ_fn.block).cpu().numpy()
+        obs.count("smem_h2d_bytes", host.nbytes)
+        obs.count("smem_d2h_bytes", got.nbytes)
+        out[(slice(None), *sel)] = got
     return out[0], out[1], out[2]
 
 
@@ -156,7 +166,7 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         if not alive.any():
             break
         ok_k, ok_l, ok_s = _ext_round(idx, "fwd", ik_k, ik_l, ik_s,
-                                      np.clip(b, 0, 4), occ_fn)
+                                      np.clip(b, 0, 4), occ_fn, alive)
         changed = alive & (ok_s != ik_s)
         push(changed, ik_k, ik_l, ik_s, ik_end)
         dead = changed & (ok_s < min_intv)
@@ -189,9 +199,9 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         bi = q[np.arange(T), np.maximum(np.minimum(i_t, L - 1), 0)].astype(np.int64)
         c = np.where(pos_ok & (bi <= 3), bi, -1)
         # one vectorized backward extension for ALL live entries
-        cc = np.where(c >= 0, c, 4)[:, None].repeat(P, 1)
-        ok_k, ok_l, ok_s = _ext_round(idx, "bwd", prev_k, prev_l, prev_s,
-                                      cc, occ_fn)
+        ok_k, ok_l, ok_s = _ext_round(
+            idx, "bwd", prev_k, prev_l, prev_s, np.where(c >= 0, c, 4)[:, None],
+            occ_fn, active[:, None] & (np.arange(P) < prev_n[:, None]))
         # per-slot sweep, vectorized ACROSS tasks (the entry-list order
         # semantics only reference per-task running state: the count of
         # kept entries and the last kept size)
@@ -282,7 +292,7 @@ def seed_strategy1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         if not alive.any():
             break
         ok_k, ok_l, ok_s = _ext_round(idx, "fwd", ik_k, ik_l, ik_s,
-                                      np.clip(b, 0, 4), occ_fn)
+                                      np.clip(b, 0, 4), occ_fn, alive)
         hit = alive & (ok_s < max_intv) & ((i - x) >= min_len)
         good = hit & (ok_s > 0)
         out[good, 0] = ok_k[good]; out[good, 1] = ok_l[good]

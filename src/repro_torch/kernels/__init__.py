@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-* ``fmocc`` — FM-index Occ(c, i) in the eta32 and eta128 bucket layouts;
+* ``fmocc`` — one SMEM extension round (every Occ(c, i) lookup of it) in
+  the eta32 and eta128 bucket layouts;
 * ``bsw``   — banded Smith-Waterman seed extension (ksw_extend2);
 * ``engine`` — the "cuda" engine: the occ-layout sweep and the SE driver.
 

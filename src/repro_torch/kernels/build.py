@@ -33,8 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argtypes (every one returns cudaError_t as int)
 SIGNATURES = {
-    "fmocc_eta32": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "fmocc_eta128": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "fmocc_ext_eta32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "fmocc_ext_eta128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsw_extend": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _I, _I, _I, _P),
 }

@@ -1,13 +1,14 @@
 """The "cuda" engine: the stage-major SE pipeline on one device, its hot
-kernels (fmocc occ lookups, BSW blocks) through ``kernels``.
+kernels (fmocc extension rounds, BSW blocks) through ``kernels``.
 
 It is ``core.pipeline.run_se_batched`` with the occ layout picked by the
 attach-time sweep — the paper's eta experiment (§4.4 / Table 4) run on
 the card: each (layout, threads-per-block) candidate is timed with CUDA
-events on a synthetic query batch, and the fastest becomes the index's
-occ kernel for that device.  Every candidate returns the same occ values,
-so the pick changes speed only, never the SAM.  On the CPU there is no
-kernel to tune: the plain version runs with the default candidate.
+events on a synthetic batch of extension entries, and the fastest
+becomes the index's SMEM round kernel for that device.  Every candidate
+returns the same values, so the pick changes speed only, never the SAM.
+On the CPU there is no kernel to tune: the plain version runs with the
+default candidate.
 
 Replaces ``repro.kernels.engine``'s Pallas sweep (``sweep_occ_configs`` /
 ``attach_occ_config``) and ``run_se_pallas``.
@@ -23,15 +24,16 @@ import torch
 
 from .. import obs
 from ..core.pipeline import PipelineOptions, run_se_batched
-from .fmocc.ops import make_occ_fn
+from .fmocc.ops import DIRECTIONS, ext_round, make_occ_fn
 
 #: (layout, threads per block) candidates the sweep times on the card
 SWEEP_CANDIDATES = (("eta32", 256), ("eta32", 512), ("eta128", 256))
 DEFAULT_CANDIDATE = ("eta32", 256)
-#: Synthetic occ queries per launch.  Large enough that one launch's
-#: device time is several times the wrapper's host time, so launches
-#: queue up behind each other and the events time the device alone.
-SWEEP_QUERIES = 1 << 24
+#: Synthetic extension entries per launch (8 occ lookups each).  Large
+#: enough that one launch's device time is several times the wrapper's
+#: host time, so launches queue up behind each other and the events time
+#: the device alone.
+SWEEP_ENTRIES = 1 << 21
 SWEEP_LAUNCHES = 4       # launches between the two events of a rep
 SWEEP_REPS = 3           # timed reps per candidate (best taken)
 #: A candidate displaces the default only when it is at least this much
@@ -49,39 +51,51 @@ class OccConfig:
 
     @property
     def occ_fn(self):
-        """The stable occ callable for this configuration."""
+        """The stable configuration callable SMEM rounds read."""
         return make_occ_fn(self.layout, self.block, self.device)
+
+
+def sweep_entries(N: int, n: int, seed: int) -> np.ndarray:
+    """(4, n) int32 (k, l, s, c) synthetic extension entries over an index
+    of N rows: k and l uniform in [0, N), s uniform in [1, 64] clipped so
+    that both [k, k+s) and [l, l+s) lie in [0, N] (a round extends either
+    direction), c uniform in 0..4 (4: an ambiguous base).  Seeded, so
+    repeated sweeps see identical inputs."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, N, n)
+    l = rng.integers(0, N, n)
+    s = np.minimum(rng.integers(1, 65, n), N - np.maximum(k, l))
+    c = rng.integers(0, 5, n)
+    return np.stack([k, l, s, c]).astype(np.int32)
 
 
 def sweep_timings(idx, device) -> dict:
     """Device milliseconds per launch of every candidate on ``device``
-    (CUDA), on ``SWEEP_QUERIES`` synthetic queries.
+    (CUDA), on ``SWEEP_ENTRIES`` synthetic entries, the launches
+    alternating backward and forward rounds.
 
     One untimed launch precedes the first event, so the device is busy
     while the host enqueues the event and the timed launches behind it.
-    Synthetic uniform queries are representative because the kernel is
-    data-oblivious: one bucket row + compare + count per query, whatever
-    the values.  Seeded, so repeated sweeps see identical inputs.
+    Synthetic uniform entries are representative because the kernel is
+    data-oblivious: two bucket gathers and a fixed count per entry,
+    whatever the values.
     """
     dev = torch.device(device)
     fm = idx.device(dev)
-    rng = np.random.default_rng(0)
-    c = torch.from_numpy(rng.integers(0, 4, SWEEP_QUERIES,
-                                      dtype=np.int32)).to(dev)
-    i = torch.from_numpy(rng.integers(-1, int(idx.N) - 1, SWEEP_QUERIES,
-                                      dtype=np.int32, endpoint=True)).to(dev)
+    st = torch.from_numpy(sweep_entries(int(idx.N), SWEEP_ENTRIES, 0)).to(dev)
     timings = {}
     for layout, block in SWEEP_CANDIDATES:
-        fn = make_occ_fn(layout, block, dev)
-        fn(fm, c, i)                                   # warmup (and build)
+        def fn(which):
+            return ext_round(fm, which, *st, layout=layout, block=block)
+        fn("bwd")                                      # warmup (and build)
         best = float("inf")
         for _ in range(SWEEP_REPS):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
-            fn(fm, c, i)
+            fn("fwd")
             t0.record()
-            for _ in range(SWEEP_LAUNCHES):
-                fn(fm, c, i)
+            for j in range(SWEEP_LAUNCHES):
+                fn(DIRECTIONS[j % 2])
             t1.record()
             t1.synchronize()
             best = min(best, t0.elapsed_time(t1) / SWEEP_LAUNCHES)

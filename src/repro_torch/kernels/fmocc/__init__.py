@@ -1,1 +1,1 @@
-from .ops import LAYOUTS, make_occ_fn, occ  # noqa: F401
+from .ops import LAYOUTS, ext_round, make_occ_fn, occ  # noqa: F401

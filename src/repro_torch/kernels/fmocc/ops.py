@@ -1,13 +1,21 @@
-"""Occ(c, i) through the fmocc CUDA kernels (``csrc/fmocc.cu``).
+"""SMEM extension rounds through the fused fmocc CUDA kernel
+(``csrc/fmocc.cu``).
 
-``occ`` is the wrapper.  For tensors on the CPU it runs the plain
-PyTorch version (``ref.occ_ref``); for tensors on a CUDA device it
-launches the kernel of the requested bucket layout and raises if the
-library does not build or the launch fails; any other device raises.
+``ext_round`` is the wrapper: the backward (or forward) extension of a
+batch of bi-intervals, every occ lookup included.  For tensors on the
+CPU it runs the plain PyTorch version (``ref.ext_round_ref``); for
+tensors on a CUDA device it launches the round kernel of the requested
+bucket layout, once, and raises if the library does not build or the
+launch fails; any other device raises.
 
-Replaces ``repro.kernels.fmocc.ops._occ_impl`` and the two Pallas
-kernels behind it.  ``block`` (threads per block) takes the place of the
-Pallas query tile ``qb``; the engine's sweep picks it.
+``occ`` is Occ(c, i) alone, for CPU tensors (the plain version); there
+is no standalone occ kernel, so it raises for any other device.
+
+Replaces ``repro.kernels.fmocc.ops`` (``_occ_impl``,
+``_backward_ext_impl`` / ``backward_ext_pallas``) and the two Pallas
+kernels behind them, as one jitted SMEM round of ``repro.core.smem``
+runs them.  ``block`` (threads per block) takes the place of the Pallas
+query tile ``qb``; the engine's sweep picks it.
 """
 
 from __future__ import annotations
@@ -19,89 +27,116 @@ import torch
 from ... import obs
 from ...core.fmindex import FMArrays
 from .. import build
-from .ref import occ_ref
+from .ref import ext_round_ref, occ_ref
 
 #: occ-bucket layouts: eta=32 (one byte per base) and eta=128 (2-bit packed)
 LAYOUTS = ("eta32", "eta128")
+#: extension directions of a round
+DIRECTIONS = ("bwd", "fwd")
 BLOCK = 256
 
 #: kernel launches by kernel name (reset by kernels.reset_launch_counts)
-LAUNCHES = {"fmocc_eta32": 0, "fmocc_eta128": 0}
+LAUNCHES = {"fmocc_ext_eta32": 0, "fmocc_ext_eta128": 0}
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown occ layout {layout!r} "
+                         f"(known: {', '.join(LAYOUTS)})")
 
 
 def occ(fm: FMArrays, c: torch.Tensor, i: torch.Tensor, *,
         layout: str = "eta32", block: int = BLOCK) -> torch.Tensor:
-    """Occ(c, i) for int32 tensors ``c`` (0..3) and ``i`` (-1..N-1) of
-    one shape, on the device of ``fm``; returns int32 of that shape.
+    """Occ(c, i) for tensors ``c`` (0..3) and ``i`` (-1..N-1) of one
+    shape on the CPU, by the plain version of ``layout``; ``block`` is
+    accepted for the ``occ_fn`` signature and unused."""
+    _check_layout(layout)
+    if c.device.type != "cpu":
+        raise RuntimeError(f"fmocc occ has no kernel for device {c.device}: "
+                           f"a round's lookups run inside ext_round")
+    return occ_ref(fm, c, i, layout=layout)
 
-    On a CUDA device the values of ``c`` and ``i`` are not checked (that
-    would take a device-to-host read per call): out-of-range values read
-    outside the index tables, as they would index outside them on the
-    CPU path."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"unknown occ layout {layout!r} "
-                         f"(known: {', '.join(LAYOUTS)})")
-    if c.device.type == "cpu":
-        return occ_ref(fm, c, i, layout=layout)
-    if c.device.type != "cuda":
-        raise RuntimeError(f"fmocc has no kernel for device {c.device}")
+
+def ext_round(fm: FMArrays, which: str, k: torch.Tensor, l: torch.Tensor,
+              s: torch.Tensor, c: torch.Tensor, *, layout: str = "eta32",
+              block: int = BLOCK) -> torch.Tensor:
+    """One extension round: ``which`` "bwd" (``backward_ext_v``) or "fwd"
+    (``forward_ext_v``) of the bi-intervals (k, l, s) by bases c, tensors
+    of one shape on the device of ``fm``.  Returns int32 (3, ...): the
+    rows k', l', s', so ``k2, l2, s2 = ext_round(...)`` unpacks them.
+
+    On a CUDA device the inputs must be contiguous int32, and their
+    values are not checked (that would take a device-to-host read per
+    round): an interval outside [0, N] reads outside the index tables,
+    as it would index outside them on the CPU path."""
+    _check_layout(layout)
+    if which not in DIRECTIONS:
+        raise ValueError(f"unknown extension direction {which!r}")
+    dev = k.device
+    if dev.type == "cpu":
+        return ext_round_ref(fm, which, k, l, s, c, layout=layout)
+    if dev.type != "cuda":
+        raise RuntimeError(f"fmocc has no kernel for device {dev}")
     if not obs.enabled():
-        return _occ_cuda(fm, c, i, layout, block)
-    with obs.span("kernel.fmocc", cat="kernel", queries=c.numel()):
+        return _ext_round_cuda(fm, which, k, l, s, c, layout, block)
+    with obs.span("kernel.fmocc", cat="kernel", entries=k.numel()):
         obs.count("kernel_fmocc_dispatches")
-        out = _occ_cuda(fm, c, i, layout, block)
-        torch.cuda.synchronize(c.device)
+        out = _ext_round_cuda(fm, which, k, l, s, c, layout, block)
+        torch.cuda.synchronize(dev)
     return out
 
 
-def _occ_cuda(fm: FMArrays, c, i, layout: str, block: int) -> torch.Tensor:
-    if c.shape != i.shape:
-        raise ValueError(f"c {tuple(c.shape)} and i {tuple(i.shape)} differ")
+def _ext_round_cuda(fm: FMArrays, which: str, k, l, s, c, layout: str,
+                    block: int) -> torch.Tensor:
     if block % 32 or not 32 <= block <= 1024:
         raise ValueError(f"block {block} must be a multiple of 32 in [32, 1024]")
     counts, rows = ((fm.occ32_counts, fm.occ32_bytes) if layout == "eta32"
                     else (fm.occ128_counts, fm.occ128_packed))
-    dev = c.device
-    for name, t in (("i", i), ("counts", counts), ("rows", rows),
+    dev = k.device
+    for name, t in (("l", l), ("s", s), ("c", c)):
+        if t.shape != k.shape:
+            raise ValueError(f"fmocc: {name} {tuple(t.shape)} and k "
+                             f"{tuple(k.shape)} differ")
+    for name, t in (("k", k), ("l", l), ("s", s), ("c", c)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"fmocc: {name} must be contiguous int32 on {dev}")
+    for name, t in (("counts", counts), ("rows", rows), ("C", fm.C),
                     ("primary", fm.primary)):
         if t.device != dev:
-            raise ValueError(f"fmocc: {name} is on {t.device}, c on {dev}")
+            raise ValueError(f"fmocc: {name} is on {t.device}, k on {dev}")
     if counts.dtype != torch.int32 or rows.dtype != torch.uint8 or \
+            fm.C.dtype != torch.int32 or fm.primary.dtype != torch.int32 or \
             not counts.is_contiguous() or not rows.is_contiguous() or \
-            counts.shape[1:] != (4,) or rows.shape[1:] != (32,) or \
+            not fm.C.is_contiguous() or counts.shape[1:] != (4,) or \
+            rows.shape[1:] != (32,) or counts.data_ptr() % 16 or \
             rows.data_ptr() % 16:
-        raise ValueError("fmocc: index tensors must be contiguous (nb, 4) "
-                         "int32 counts and 16-byte aligned (nb, 32) uint8 "
-                         "rows")
-    cf = c.reshape(-1).to(torch.int32).contiguous()
-    i_f = i.reshape(-1).to(torch.int32).contiguous()
-    T = cf.numel()
-    if T >= 2 ** 31:
-        raise ValueError(f"fmocc: {T} queries exceed one launch's int32 count")
-    out = torch.empty(T, dtype=torch.int32, device=dev)
-    if T == 0:
-        return out.reshape(c.shape)
+        raise ValueError("fmocc: index tensors must be contiguous 16-byte "
+                         "aligned (nb, 4) int32 counts and (nb, 32) uint8 "
+                         "rows, with int32 C and primary")
+    n = k.numel()
+    if 3 * n >= 2 ** 31:
+        raise ValueError(f"fmocc: {n} entries exceed one launch's int32 count")
+    out = torch.empty((3, *k.shape), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
     lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    name = f"fmocc_{layout}"
-    if layout == "eta32":
-        err = lib.fmocc_eta32(cf.data_ptr(), i_f.data_ptr(), counts.data_ptr(),
-                              rows.data_ptr(), out.data_ptr(), T, block, stream)
-    else:
-        err = lib.fmocc_eta128(cf.data_ptr(), i_f.data_ptr(),
-                               counts.data_ptr(), rows.data_ptr(),
-                               fm.primary.data_ptr(), out.data_ptr(), T,
-                               block, stream)
+    name = f"fmocc_ext_{layout}"
+    err = getattr(lib, name)(
+        k.data_ptr(), l.data_ptr(), s.data_ptr(), c.data_ptr(),
+        counts.data_ptr(), rows.data_ptr(), fm.C.data_ptr(),
+        fm.primary.data_ptr(), out.data_ptr(), n, int(which == "fwd"), block,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
     LAUNCHES[name] += 1
-    return out.reshape(c.shape)
+    return out
 
 
 def make_occ_fn(layout: str = "eta32", block: int = BLOCK,
                 device="cuda"):
     """One stable ``occ_fn(fm, c, i)`` per (layout, block, device), with
-    the signature of ``core.fmindex.occ_opt_v`` — what SMEM rounds call.
-    ``occ_fn.device`` tells ``core.smem`` where to run the round."""
+    the signature of ``core.fmindex.occ_opt_v``.  ``core.smem`` reads its
+    ``.layout``, ``.block`` and ``.device`` and runs each round through
+    ``ext_round`` there; calling it runs ``occ`` (CPU tensors only)."""
     return _make_occ_fn(layout, int(block), str(torch.device(device)))
 
 

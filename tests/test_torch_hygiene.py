@@ -23,7 +23,7 @@ from repro_torch.core.bsw import BSWParams
 from repro_torch.data import make_reference, write_fasta, write_fastq
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.bsw import bsw_call, bsw_extend_kernel
-from repro_torch.kernels.fmocc import occ
+from repro_torch.kernels.fmocc import ext_round, occ
 
 torch.set_num_threads(1)
 
@@ -106,6 +106,10 @@ def test_wrappers_refuse_meta_tensors(tiny):
     for layout in ("eta32", "eta128"):
         with pytest.raises(RuntimeError, match="no kernel for device meta"):
             occ(fm_meta, c, c, layout=layout)
+        for which in ("bwd", "fwd"):
+            with pytest.raises(RuntimeError,
+                               match="no kernel for device meta"):
+                ext_round(fm_meta, which, c, c, c, c, layout=layout)
     a = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     v = torch.ones(2, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
