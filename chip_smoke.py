@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives single-end ``mem`` on the card through the port's own entry points
-and checks every hand-written kernel against its plain PyTorch version.
+Drives single-end and paired-end ``mem`` on the card through the port's
+own entry points and checks every hand-written kernel against its plain
+PyTorch version.
 Phases (each prints one line, any failure raises and exits non-zero):
 
 1. environment: Python, torch, CUDA and nvcc versions; the card's name and
@@ -33,14 +34,25 @@ Phases (each prints one line, any failure raises and exits non-zero):
    (CUDA events, median of 20); each kernel's registers (ptxas) and the
    BSW kernel's shared memory; the sweep's device time per launch of each
    candidate; and the card's busy share while the device stages (SMEM,
-   SAL, chaining, BSW) run on the 512 reads under the profiler;
+   SAL, chaining, BSW) run on the 512 reads under the profiler.  Then
+   ``bsw_rescue_exact``: every BSW block of PE mate rescue on 256 simulated
+   pairs (insert N(300, 30), 15% of the mates rescue-only), held exactly
+   against the plain version and timed beside its bound;
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
    set to 0 just before and read just after; one primary SAM line per
    read, reads/s, the stage breakdown, SMEM rounds and the
    truth-recovery share;
 6. card against CPU: the first 256 reads through ``Aligner(device="cpu")``
-   give SAM body lines byte-identical to the card's.
+   give SAM body lines byte-identical to the card's;
+7. paired-end main path: 1,024 simulated pairs (2,048 reads) through
+   ``repro_torch.cli mem --device cuda -b 1024 ref r1.fq r2.fq`` (one
+   batch) with the launch counters set to 0 just before and read just
+   after, the rescue's launches read apart; pairs/s, the proper-pair
+   share, rescued mates, FR's insert-size estimate, truth recovery per
+   end, the stage breakdown and rescue cells useful/total;
+8. PE card against CPU: the first 128 pairs, as one batch, through
+   ``Aligner.align_pairs`` on the card and on the CPU give identical SAM.
 
 The line before the last is one JSON object with every kernel's launches,
 error, times and bound; the last line is ``{"ok": true, "device": ...}``.
@@ -69,13 +81,15 @@ from repro_torch.api import Aligner  # noqa: E402
 from repro_torch.core.bsw import BSWParams, pack_tasks  # noqa: E402
 from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
 from repro_torch.core.contig import contig_edges  # noqa: E402
+from repro_torch import pe  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
-                                       PipelineOptions)
+                                       PipelineOptions, run_se_batched)
 from repro_torch.core.sal import seeds_from_intervals  # noqa: E402
 from repro_torch.core import smem as smem_mod  # noqa: E402
 from repro_torch.core.smem import collect_smems_batch  # noqa: E402
-from repro_torch.data import (make_reference, simulate_reads,  # noqa: E402
-                              write_fasta, write_fastq)
+from repro_torch.data import (make_reference, simulate_pairs,  # noqa: E402
+                              simulate_reads, write_fasta, write_fastq,
+                              write_fastq_pair)
 from repro_torch.io.store import load_index  # noqa: E402
 from repro_torch.io.stream import open_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -94,6 +108,10 @@ N_READS = 2048             # one batch, ~1/50 of bwa's 10-Mbase -K chunk
 READ_LEN = 101
 N_SAMPLE_READS = 512
 N_CPU_READS = 256
+N_PAIRS = 1024             # the PE phase: 2,048 reads, the SE phase's width
+N_RESCUE_PAIRS = 256
+N_CPU_PAIRS = 128
+PAIR_SIM = dict(insert_mean=300, insert_std=30, burst_frac=0.15)
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
 L2_FLUSH_BYTES = 256 << 20
@@ -339,17 +357,21 @@ def device_stages(idx, reads, dev):
         jobs.extend(((r, ci), ch, reads[r], idx)
                     for ci, ch in enumerate(chains))
     blocks = []
-
-    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None):
-        blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax, tmax))
-        return bsw_extend_kernel(queries, targets, h0s, p, ws, qmax, tmax,
-                                 device=dev)
-
-    BatchedBSWExecutor(opt.bsw, batch_fn=record,
+    BatchedBSWExecutor(opt.bsw, batch_fn=recording_batch_fn(blocks, dev),
                        block=opt.bsw_block).plan_and_run(jobs)
     if len(blocks) < BSW_REAL_BLOCKS:
         raise AssertionError(f"only {len(blocks)} BSW blocks in the sample")
     return rounds, blocks
+
+
+def recording_batch_fn(blocks: list, dev):
+    """The executor's ``batch_fn`` on ``dev``, appending each block's
+    packed arrays to ``blocks`` before it launches the kernel."""
+    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None):
+        blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax, tmax))
+        return bsw_extend_kernel(queries, targets, h0s, p, ws, qmax, tmax,
+                                 device=dev)
+    return record
 
 
 def related(rng, qlens, tlens):
@@ -479,34 +501,110 @@ def check_bsw(blocks: dict, dev) -> dict:
                               separators=(",", ":")),
           kernel_ms=f"{one_ms:.4f}",
           four_launches_ms=f"{ms * len(real):.4f}")
-    # the banded cells these blocks need, counted by the plain version
-    reg = obs.MetricsRegistry()
-    with obs.activate(reg):
-        for a in real:
-            bsw_ref(*a, p)
-    snap = reg.snapshot()
-    cells = int(snap.get("bsw_cells_banded", 0))
-    rows = int(snap.get("bsw_task_rows", 0))
-    nbytes = sum(t.numel() * 4 for a in real for t in a) + \
-        sum(6 * a[0].shape[0] * 4 for a in real)
-    ops_ms = 1e3 * cells * BSW_OPS_PER_CELL / INT32_OPS_PER_S / len(real)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S / len(real)
+    cells, rows = bsw_cells(real, p)
+    bound, by = bsw_bound_ms(real, cells)
     phase("bsw", blocks=",".join(timed), tasks_real=sum(
         a[0].shape[0] for a in real), cells_real=cells, task_rows_real=rows,
         cells_per_row=f"{cells / max(rows, 1):.1f}",
         tmax_real=",".join(str(a[1].shape[1]) for a in real), max_abs_err=err,
         kernel_ms_per_block=f"{ms:.4f}", call_ms_per_block=f"{call:.4f}",
-        plain_ms_per_block=f"{plain:.4f}",
-        bound_ms_per_block=f"{max(ops_ms, bytes_ms):.6f}")
-    out["bsw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                      bound_ms=max(ops_ms, bytes_ms),
-                      bound_by="operations" if ops_ms >= bytes_ms
-                      else "bytes")
+        plain_ms_per_block=f"{plain:.4f}", bound_ms_per_block=f"{bound:.6f}")
+    out["bsw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                      bound_by=by)
     return out
 
 
+def bsw_cells(blocks: list, p: BSWParams) -> tuple[int, int]:
+    """(banded DP cells, task rows) of ``blocks`` (each the six packed
+    arrays of one launch), counted by the plain version."""
+    reg = obs.MetricsRegistry()
+    with obs.activate(reg):
+        for a in blocks:
+            bsw_ref(*a, p)
+    snap = reg.snapshot()
+    return int(snap.get("bsw_cells_banded", 0)), int(snap.get("bsw_task_rows",
+                                                              0))
+
+
+def bsw_bound_ms(blocks: list, cells: int) -> tuple[float, str]:
+    """Least time a block for ``blocks`` and what bounds it: their
+    ``cells`` banded cells x ``BSW_OPS_PER_CELL`` over the int32 rate, or
+    every input read and the (6, W) output written once over the HBM
+    rate."""
+    nbytes = sum(t.numel() * 4 for a in blocks for t in a) + \
+        sum(6 * a[0].shape[0] * 4 for a in blocks)
+    ops_ms = 1e3 * cells * BSW_OPS_PER_CELL / INT32_OPS_PER_S / len(blocks)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S / len(blocks)
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def rescue_blocks(idx, reads1, reads2, dev):
+    """The PE path's mate rescue on (reads1, reads2) up to its BSW blocks:
+    both ends through ``run_se_batched`` on ``dev``, the insert-size
+    estimate, the rescue plan, and ``run_rescues_batched`` with a
+    ``batch_fn`` that records every packed block before it launches the
+    kernel.  Returns (the blocks, the rescue's stats, the PairStat[4])."""
+    opt = PipelineOptions(device=str(dev))
+    n = len(reads1)
+    res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt)
+    peopt = pe.PEOptions()
+    pes = pe.estimate_pestat(res[:n], res[n:], idx, max_ins=peopt.max_ins)
+    tasks = pe.plan_rescues((res[:n], res[n:]), (reads1, reads2), pes, idx,
+                            peopt)
+    blocks = []
+    _, stats = pe.run_rescues_batched(tasks, idx, opt.bsw,
+                                      batch_fn=recording_batch_fn(blocks, dev),
+                                      block=opt.bsw_block)
+    return blocks, stats, pes
+
+
+def check_rescue_bsw(blocks: list, dev) -> dict:
+    """Every rescue block held exactly against the plain version, then
+    timed beside its bound; the kernel line reports the block with the
+    most banded cells."""
+    if not blocks:
+        raise AssertionError("the rescue sample dispatched no BSW block")
+    p = BSWParams()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = [[torch.from_numpy(a).to(dev) for a in b] for b in blocks]
+    err = 0
+    for j, a in enumerate(args):
+        got, want = bsw_call(*a, p), bsw_ref(*a, p)
+        err = max(err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"bsw differs from its plain version on "
+                                 f"rescue block {j}")
+    cells, rows = bsw_cells(args, p)
+    geo = [launch_geometry(a[0].shape[0], a[0].shape[1], sms) for a in args]
+    phase("bsw_rescue_exact", blocks=len(args),
+          tasks=sum(a[0].shape[0] for a in args),
+          qmax=",".join(str(a[0].shape[1]) for a in args),
+          tmax=",".join(str(a[1].shape[1]) for a in args),
+          cells=cells, task_rows=rows,
+          cells_per_row=f"{cells / max(rows, 1):.1f}",
+          max_smem_bytes_a_cta=max(g[2] for g in geo), max_abs_err=err)
+    heaviest = None
+    for j, one in enumerate(args):
+        ms = kernel_ms(lambda: bsw_call(*one, p), "bsw_kernel", 1)
+        plain = cuda_ms(lambda: bsw_ref(*one, p), reps=5)
+        c1, r1 = bsw_cells([one], p)
+        bound, by = bsw_bound_ms([one], c1)
+        phase("bsw_rescue", block=j, tasks=one[0].shape[0],
+              qmax=one[0].shape[1], tmax=one[1].shape[1], cells=c1,
+              cells_per_row=f"{c1 / max(r1, 1):.1f}",
+              geometry=json.dumps(geo[j], separators=(",", ":")),
+              kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+              bound_ms=f"{bound:.6f}", bound_by=by)
+        if heaviest is None or c1 > heaviest[0]:
+            heaviest = (c1, dict(rescue_max_abs_err=err, rescue_ms=ms,
+                                 rescue_plain_ms=plain, rescue_bound_ms=bound,
+                                 rescue_bound_by=by))
+    return heaviest[1]
+
+
 # ---------------------------------------------------------------------
-# phases 5 and 6: main path, card against CPU
+# phases 5 to 8: main paths, card against CPU
 # ---------------------------------------------------------------------
 
 def sam_body(path) -> list[str]:
@@ -533,6 +631,124 @@ def check_records(body: list[str], names: list[str], truth) -> float:
         if not int(f[1]) & 0x4 and abs(int(f[3]) - 1 - int(truth["pos"][r])) <= 12:
             hits += 1
     return hits / len(names)
+
+
+def check_pair_records(body: list[str], names: list[str], truth) -> tuple:
+    """Two primary lines per pair, one flagged first (0x40) and one last
+    (0x80) in the pair; returns (the proper-pair share, the truth-recovery
+    share of end 1, of end 2)."""
+    primary = {}
+    for ln in body:
+        f = ln.split("\t")
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        key = (f[0], 0 if flag & 0x40 else 1)
+        if not flag & 0xC0 or key in primary:
+            raise AssertionError(f"pair {f[0]}: flag {flag} is not one "
+                                 f"primary line an end")
+        primary[key] = f
+    if sorted(primary) != sorted((n, e) for n in names for e in (0, 1)):
+        raise AssertionError(f"{len(primary)} primary lines for "
+                             f"{len(names)} pairs")
+    proper = sum(bool(int(primary[(n, 0)][1]) & 0x2) for n in names)
+    hits = [0, 0]
+    for i, n in enumerate(names):
+        for e, key in enumerate(("pos1", "pos2")):
+            f = primary[(n, e)]
+            if not int(f[1]) & 0x4 and \
+                    abs(int(f[3]) - 1 - int(truth[key][i])) <= 12:
+                hits[e] += 1
+    return tuple(x / len(names) for x in (proper, *hits))
+
+
+def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
+    """Phase 7: ``N_PAIRS`` simulated pairs through ``repro_torch.cli mem
+    --device cuda`` as one batch, the launch counters set to 0 just
+    before and read just after; the launches inside the mate-rescue stage
+    are read apart around ``run_rescues_batched``."""
+    r1, r2, truth = simulate_pairs(ref, N_PAIRS, READ_LEN, seed=13,
+                                   **PAIR_SIM)
+    fq1, fq2 = tmp / "r1.fq", tmp / "r2.fq"
+    write_fastq_pair(fq1, fq2, r1, r2)
+    names = [f"pair{i}" for i in range(N_PAIRS)]
+    sam, prof = tmp / "pe.sam", tmp / "pe.json"
+    rescue_launches = dict.fromkeys(kernels.launch_counts(), 0)
+    run_rescues = pe.run_rescues_batched
+
+    def counted(*args, **kw):
+        before = kernels.launch_counts()
+        out = run_rescues(*args, **kw)
+        for k, v in kernels.launch_counts().items():
+            rescue_launches[k] += v - before[k]
+        return out
+    pe.run_rescues_batched = counted
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["mem", str(fa), str(fq1), str(fq2), "-o", str(sam),
+                       "--device", "cuda", "-b", str(N_PAIRS), "--no-pg",
+                       "--profile", str(prof)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        pe.run_rescues_batched = run_rescues
+    if rc != 0:
+        raise AssertionError(f"repro_torch.cli mem (paired) exited {rc}")
+    payload = obs.read_profile(prof)
+    snap = payload["snapshot"]
+    picked = snap["occ_kernel"]
+    if not isinstance(picked, str):
+        raise AssertionError(f"mem ran {len(picked)} batches, not one")
+    proper, truth1, truth2 = check_pair_records(sam_body(sam), names, truth)
+    fr_failed, fr_avg, fr_std = (snap[k][1] for k in
+                                 ("pes_failed", "pes_avg", "pes_std"))
+    if fr_failed:
+        raise AssertionError("FR insert-size stats failed on the PE batch")
+    phase("mem_pe", pairs=N_PAIRS, reads=2 * N_PAIRS, wall_s=f"{wall:.2f}",
+          pairs_per_s=f"{N_PAIRS / wall:.1f}",
+          reads_per_s=f"{2 * N_PAIRS / wall:.1f}", occ_kernel=picked,
+          proper_share=f"{proper:.4f}", n_rescued=int(snap["n_rescued"]),
+          fr_avg=f"{fr_avg:.2f}", fr_std=f"{fr_std:.2f}",
+          truth_share_end1=f"{truth1:.4f}", truth_share_end2=f"{truth2:.4f}",
+          launches=json.dumps(launches, separators=(",", ":")),
+          launches_rescue=json.dumps(rescue_launches, separators=(",", ":")),
+          bsw_tasks_se=int(snap["bsw_tasks"]),
+          rescue_tasks=int(snap["rescue_tasks"]),
+          rescue_bsw=int(snap["rescue_bsw"]),
+          rescue_cells_useful=int(snap["rescue_cells_useful"]),
+          rescue_cells_total=int(snap["rescue_cells_total"]),
+          smem_rounds=int(snap["smem_rounds"]))
+    bd = payload["breakdown"]
+    stages = {r["stage"]: r["time_s"] for r in bd["stages"] if r["time_s"]}
+    phase("breakdown_pe", stages=json.dumps(stages, separators=(",", ":")),
+          kernels=json.dumps(bd.get("kernels", {}), separators=(",", ":")),
+          unattributed_s=bd["unattributed_s"])
+    return dict(launches=launches, rescue_launches=rescue_launches,
+                occ_kernel=picked.split("/")[0], fq1=fq1, fq2=fq2)
+
+
+def cpu_vs_card_pe(fa, fq1, fq2) -> None:
+    """Phase 8: the first ``N_CPU_PAIRS`` pairs as one batch through
+    ``Aligner.align_pairs`` on the card and on the CPU: identical SAM.
+    (Against the phase-7 run's lines they could differ: the insert-size
+    stats are estimated per batch.)"""
+    first = next(iter(open_batches(str(fq1), str(fq2),
+                                   batch_size=N_CPU_PAIRS)))
+    t0 = time.perf_counter()
+    card = Aligner.from_bundle(fa, device="cuda").align_pairs(first)
+    t_card = time.perf_counter() - t0
+    cpu = Aligner.from_bundle(fa, device="cpu").align_pairs(first)
+    if card.sam() != cpu.sam():
+        bad = next((j for j, (a, b) in enumerate(zip(card.sam(), cpu.sam()))
+                    if a != b), -1)
+        raise AssertionError(f"card and CPU PE SAM differ (first line {bad})")
+    phase("cpu_vs_card_pe", pairs=len(first), lines=len(cpu.sam()),
+          identical=True, n_rescued=card.stats["n_rescued"],
+          n_proper=card.stats["n_proper"], card_s=f"{t_card:.1f}",
+          cpu_s=f"{time.perf_counter() - t0 - t_card:.1f}")
 
 
 def main() -> int:
@@ -601,6 +817,15 @@ def main() -> int:
                   for j, b in enumerate(sample)}
         blocks.update(synthetic_bsw_blocks())
         results.update(check_bsw(blocks, dev))
+        p1, p2, _ = simulate_pairs(ref, N_RESCUE_PAIRS, READ_LEN, seed=11,
+                                   **PAIR_SIM)
+        rblocks, rstats, pes_r = rescue_blocks(idx, p1, p2, dev)
+        phase("rescue_sample", pairs=N_RESCUE_PAIRS,
+              rescue_tasks=rstats["rescue_tasks"],
+              rescue_bsw=rstats["rescue_bsw"], fr_failed=pes_r[1].failed,
+              fr_avg=f"{pes_r[1].avg:.2f}")
+        results["bsw"].update(check_rescue_bsw(rblocks, dev))
+        del rblocks
 
         # 5. main path through the CLI
         fq = tmp / "reads.fq"
@@ -658,15 +883,31 @@ def main() -> int:
         phase("cpu_vs_card", reads=len(first), lines=len(cpu),
               identical=True, cpu_s=f"{time.perf_counter() - t0:.1f}")
 
+        # 7. paired-end main path through the CLI
+        pe_run = mem_pe(fa, tmp, ref)
+        launches_pe = pe_run["launches"]
+        for k in (f"fmocc_ext_{pe_run['occ_kernel']}", "bsw"):
+            if launches_pe[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the "
+                                     f"PE path")
+        if pe_run["rescue_launches"]["bsw"] <= 0:
+            raise AssertionError("mate rescue launched no BSW block")
+
+        # 8. the card's PE SAM against the CPU path's on the first pairs
+        cpu_vs_card_pe(fa, pe_run["fq1"], pe_run["fq2"])
+
     report = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches[name],
+                       "launches_pe": launches_pe[name],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": None,
-                       "cold_ms": r.get("cold_ms")})
+                       "cold_ms": r.get("cold_ms"),
+                       **{k: v for k, v in r.items()
+                          if k.startswith("rescue_")}})
     phase("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,26 +1,27 @@
 """The mapper API of the port: one ``Aligner`` facade over pluggable engines.
 
-The counterpart of ``repro.api`` for single-end alignment::
+The counterpart of ``repro.api``::
 
     from repro_torch.api import Aligner, AlignOptions
 
     al = Aligner.from_fasta("ref.fa")            # or .from_bundle/.from_index
     result = al.align(batch)                     # BatchResult
-    al.stream_sam(open_batches("reads.fq"), "out.sam")
+    pairs = al.align_pairs(batch1, batch2)
+    al.stream_sam(open_batches("r_1.fq", "r_2.fq"), "out.sam")
 
 * Device: ``device="cuda"`` (the default, from ``AlignOptions.device``)
   runs SMEM, SAL and BSW on the card through the hand-written kernels.
   Without a CUDA device the constructor raises ``RuntimeError``; it never
   carries on on the CPU.  ``device="cpu"`` runs the kernels' plain
   PyTorch versions — what the tests use.
-* Engines: ``AlignOptions.engine`` selects a driver through a registry
-  (``register_engine``).  An engine is a callable with the driver
-  signature of ``repro_torch.core.pipeline``:
+* Engines: ``AlignOptions.engine`` selects a driver pair through a
+  registry (``register_engine``).  An engine is two callables with the
+  driver signatures of ``repro_torch.core.pipeline``:
 
-      se(idx, reads, PipelineOptions) -> (results, stats)
+      se(idx, reads, PipelineOptions)                  -> (results, stats)
+      pe(idx, r1, r2, PipelineOptions, PEOptions, names) -> (lines, stats)
 
-  "cuda" is the one engine in the tree.  Paired-end input is not ported
-  yet and raises.
+  "cuda" is the one engine in the tree.
 * Results: a structured ``BatchResult`` (SAM body + per-stage stats +
   names + lens + parsed ``AlignmentRecord`` views).
 
@@ -42,7 +43,7 @@ import torch
 from . import obs
 from .core.contig import sam_header as _contig_header
 from .core.sam import format_sam
-from .kernels.engine import run_se_cuda
+from .kernels.engine import run_pe_cuda, run_se_cuda
 from .options import AlignOptions, parse_read_group
 
 VERSION = "0.2.0"                 # keep in sync with pyproject.toml
@@ -58,23 +59,24 @@ __all__ = ["Aligner", "AlignOptions", "AlignmentRecord", "BatchResult",
 
 @dataclasses.dataclass(frozen=True)
 class Engine:
-    """A pluggable SE driver (see module docstring for the signature)."""
+    """A pluggable driver pair (see module docstring for signatures)."""
     name: str
     se: Callable
+    pe: Callable | None = None
 
 
 _ENGINES: dict[str, Engine] = {}
 
 
-def register_engine(name: str, se: Callable, *,
-                    replace: bool = False) -> Engine:
-    """Register a driver under ``name`` (usable as
+def register_engine(name: str, se: Callable, pe: Callable | None = None,
+                    *, replace: bool = False) -> Engine:
+    """Register a driver pair under ``name`` (usable as
     ``AlignOptions(engine=name)``).  Registering an existing name raises
     unless ``replace=True``."""
     if name in _ENGINES and not replace:
         raise ValueError(f"engine {name!r} already registered "
                          f"(pass replace=True to shadow it)")
-    eng = Engine(name, se)
+    eng = Engine(name, se, pe)
     _ENGINES[name] = eng
     return eng
 
@@ -93,9 +95,10 @@ def engines() -> list[str]:
 
 
 # the stage-major pipeline with its hot kernels (SMEM occ lookups, BSW
-# blocks) through the CUDA kernels; byte-identical to the reference's
-# "batched" and "pallas" engines (tested on the CPU path)
-register_engine("cuda", run_se_cuda)
+# blocks, PE mate-rescue blocks) through the CUDA kernels; byte-identical
+# to the reference's "batched" and "pallas" engines (tested on the CPU
+# path)
+register_engine("cuda", run_se_cuda, run_pe_cuda)
 
 
 def resolve_device(device) -> torch.device:
@@ -258,6 +261,30 @@ def _coerce_se(batch, names, lens):
     return reads, list(names), lens
 
 
+def _coerce_pe(batch1, batch2, names):
+    if hasattr(batch1, "reads1") and hasattr(batch1, "reads2"):
+        if batch2 is not None:
+            raise ValueError("pass a PairBatch alone, or two read arrays")
+        r1, r2 = batch1.reads1, batch1.reads2
+        names = list(batch1.names) if names is None else list(names)
+        lens = np.stack([batch1.lens1, batch1.lens2])
+    else:
+        if batch2 is None:
+            raise ValueError("align_pairs needs a PairBatch or both ends")
+        r1, r2 = np.asarray(batch1), np.asarray(batch2)
+        B = len(r1)
+        lens = np.stack([np.full(B, r1.shape[1], np.int64),
+                         np.full(B, r2.shape[1], np.int64)])
+    if r1.shape[1] != r2.shape[1]:
+        raise ValueError("paired ends must share one padded width "
+                         "(io.stream.stream_pair_batches guarantees this)")
+    if names is None:
+        names = [f"pair{p}" for p in range(len(r1))]
+    if len(names) != len(r1) or len(r1) != len(r2):
+        raise ValueError("names/ends length mismatch")
+    return r1, r2, list(names), lens
+
+
 # ---------------------------------------------------------------------
 # The facade
 # ---------------------------------------------------------------------
@@ -277,11 +304,16 @@ class Aligner:
     ``obs.Telemetry(trace=True)`` to additionally collect Chrome trace
     events for the whole run.  Off (``None``) by default — the
     instrumented hot path then costs one thread-local read per stage.
+
+    ``pe_stats`` freezes the insert-size stats (``PairStat[4]``, e.g. from
+    ``estimate_pe_stats``) that ``align_pairs`` uses instead of per-batch
+    estimation.
     """
 
     def __init__(self, index, options: AlignOptions | None = None, *,
                  device=None,
-                 telemetry: "obs.Telemetry | bool | None" = None):
+                 telemetry: "obs.Telemetry | bool | None" = None,
+                 pe_stats=None):
         self.index = index
         options = options or AlignOptions()
         dev = resolve_device(options.device if device is None else device)
@@ -292,6 +324,7 @@ class Aligner:
         elif telemetry is False:
             telemetry = None
         self.telemetry: obs.Telemetry | None = telemetry
+        self.pe_stats = None if pe_stats is None else list(pe_stats)
         self._rg: tuple[str, str] | None = None
         if self.options.read_group:
             self._rg = parse_read_group(self.options.read_group)
@@ -392,6 +425,55 @@ class Aligner:
         return BatchResult(names=names, lens=lens, stats=stats,
                            paired=False, alignments=results, _sam_body=flat)
 
+    def align_pairs(self, batch1, batch2=None, *, names=None) -> BatchResult:
+        """Paired-end alignment -> ``BatchResult`` whose records carry
+        mate fields, proper-pair flags and the pair-aware MAPQ blend.
+
+        ``batch1`` is a ``PairBatch`` (alone) or end-1 reads with
+        ``batch2`` as end-2.  Unlike :meth:`align`, per-read lens are
+        recorded on the result but NOT masked: pair batches run at one
+        padded width, because regrouping pairs by length would change the
+        per-batch insert-size estimates.
+        """
+        r1, r2, names, lens = _coerce_pe(batch1, batch2, names)
+        eng = self._eng
+        if eng.pe is None:
+            raise ValueError(f"engine {eng.name!r} has no paired-end driver")
+        peopt = self.options.pe_options()
+        if self.pe_stats is not None:
+            peopt = dataclasses.replace(peopt,
+                                        frozen_pes=tuple(self.pe_stats))
+        with self._scope() as reg:
+            lines, st = eng.pe(self.index, r1, r2,
+                               self.options.pipeline_options(),
+                               peopt, names)
+        stats = obs.Snapshot(st)
+        if reg is not None:
+            stats.merge_in(reg.snapshot())
+        return BatchResult(names=names, lens=lens, stats=stats,
+                           paired=True, alignments=None,
+                           _sam_body=self._tag(lines))
+
+    def estimate_pe_stats(self, batch1, batch2=None) -> list:
+        """Bootstrap insert-size stats from one leading pair batch.
+
+        SE-aligns both ends and runs the exact ``mem_pestat`` estimator
+        the PE driver uses, so freezing the result (``self.pe_stats`` /
+        ``PEOptions.frozen_pes``) reproduces byte-for-byte what a plain
+        ``align_pairs`` of that same batch would have estimated.
+
+        Returns ``PairStat[4]`` (does NOT mutate ``self.pe_stats``).
+        """
+        from .pe import estimate_pestat
+        r1, r2, _names, _lens = _coerce_pe(batch1, batch2, None)
+        popt = self.options.pipeline_options()
+        n = len(r1)
+        both = np.concatenate([r1, r2], axis=0)
+        with self._scope():
+            res, _ = self._eng.se(self.index, both, popt)
+        return estimate_pestat(res[:n], res[n:], self.index,
+                               max_ins=self.options.pe_options().max_ins)
+
     # -- SAM emission --
 
     def sam_header(self, cl: str | None = None) -> list[str]:
@@ -407,7 +489,7 @@ class Aligner:
 
     def stream_sam(self, batches: Iterable, out=None, *, header: bool = True,
                    cl: str | None = None) -> dict:
-        """Drive an iterable of ``ReadBatch`` (e.g. from
+        """Drive an iterable of ``ReadBatch``/``PairBatch`` (e.g. from
         ``repro_torch.io.stream.open_batches``) through the engine and
         write SAM to ``out`` (a path, a file object, or None for stdout).
 
@@ -415,7 +497,6 @@ class Aligner:
         per-stage stats (an ``obs.Snapshot``).  With telemetry enabled the
         summary also carries the run-level I/O accounting (``time_io_s``,
         batch fill/pad-waste) captured around the batch iterator pulls.
-        A paired batch raises: paired-end alignment is not ported yet.
         """
         close = False
         if out is None:
@@ -442,9 +523,11 @@ class Aligner:
                     if b is _end:
                         break
                     if hasattr(b, "reads1"):
-                        raise ValueError("paired-end is not ported yet")
-                    res = self.align(b)
-                    n_reads += len(b)
+                        res = self.align_pairs(b)
+                        n_reads += 2 * len(b)
+                    else:
+                        res = self.align(b)
+                        n_reads += len(b)
                     with obs.span("io"):
                         for ln in res.sam():
                             print(ln, file=fh)

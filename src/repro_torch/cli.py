@@ -1,8 +1,10 @@
 """bwa-mem-shaped command line of the port, over its ``Aligner`` facade.
 
     python -m repro_torch.cli index ref.fa[.gz] [-p PREFIX]
-    python -m repro_torch.cli mem  ref.fa reads.fq[.gz] [-o out.sam]
+    python -m repro_torch.cli mem  ref.fa reads_1.fq[.gz] [reads_2.fq[.gz]]
+                                   [-o out.sam] [--interleaved]
                                    [--device cuda|cpu] [--batch-size B]
+                                   [-K BASES] [--pe-bootstrap]
                                    [--no-pg] [--profile prof.json]
                                    [-k -w -r -c -A -B -O -E -L -d -T -U -a -Y]
                                    [-R '@RG\\tID:...']
@@ -12,12 +14,14 @@ seeded random base, as bwa does), builds the concatenated-contig FM-index
 and persists it as the bundle of ``io.store`` next to the FASTA — the
 same bundle ``repro.cli index`` writes, so either loads in the other.
 
-``mem`` aligns single-end reads on ``--device`` (default ``cuda``: the
-hand-written kernels on the card; without a CUDA device it exits with an
-error rather than run on the CPU; ``cpu`` runs their plain PyTorch
-versions).  Its SAM is byte-identical to ``repro.cli mem --engine
-pallas`` on the same input.  Paired-end input exits 2: it is not ported
-yet.
+``mem`` aligns single-end reads, split R1/R2 pairs or interleaved pairs
+(``-p``) on ``--device`` (default ``cuda``: the hand-written kernels on
+the card; without a CUDA device it exits with an error rather than run
+on the CPU; ``cpu`` runs their plain PyTorch versions).  ``-K`` cuts the
+input into fixed-base chunks (bwa ``-K``); ``--pe-bootstrap`` estimates
+the insert-size stats once, on the leading chunk, and freezes them for
+the whole run.  Its SAM is byte-identical to ``repro.cli mem --engine
+pallas`` on the same input.
 
 ``--profile out.json`` turns on telemetry and writes the paper-style
 kernel-breakdown profile.
@@ -84,9 +88,6 @@ def cmd_mem(args, argv) -> int:
     from .api import Aligner, resolve_device
     from .io.stream import open_batches
 
-    if args.reads2 is not None or args.interleaved:
-        _log("error: paired-end is not ported yet")
-        return 2
     try:
         options = _options_from_args(args)
         resolve_device(options.device)
@@ -97,9 +98,24 @@ def cmd_mem(args, argv) -> int:
     if args.profile:
         from . import obs
         telemetry = obs.Telemetry()
+    paired = args.reads2 is not None or args.interleaved
+    if args.pe_bootstrap and (not paired or not args.chunk_bases):
+        _log("error: --pe-bootstrap needs paired input and -K")
+        return 2
     aligner = Aligner.from_index(_load_or_build(args.ref), options,
                                  telemetry=telemetry)
-    batches = open_batches(args.reads1, batch_size=args.batch_size)
+    if args.pe_bootstrap:
+        lead = next(iter(open_batches(args.reads1, args.reads2,
+                                      interleaved=args.interleaved,
+                                      chunk_bases=args.chunk_bases,
+                                      chunk_range=(0, 1))))
+        aligner.pe_stats = aligner.estimate_pe_stats(lead)
+        _log("froze insert-size stats from the leading chunk "
+             "(--pe-bootstrap)")
+    batches = open_batches(args.reads1, args.reads2,
+                           batch_size=args.batch_size,
+                           interleaved=args.interleaved,
+                           chunk_bases=args.chunk_bases)
     out = None if args.output in (None, "-") else args.output
     t0 = time.time()
     cl = None if args.no_pg else " ".join(["repro_torch.cli"] + list(argv))
@@ -115,7 +131,8 @@ def cmd_mem(args, argv) -> int:
         meta = {"engine": aligner.options.engine,
                 "device": aligner.options.device,
                 "reads": summary["n_reads"],
-                "batches": summary["n_batches"]}
+                "batches": summary["n_batches"],
+                "paired": paired}
         obs.write_profile(args.profile, summary["stats"], wall_s=dt,
                           meta=meta)
         _log(f"wrote profile {args.profile}")
@@ -123,12 +140,21 @@ def cmd_mem(args, argv) -> int:
 
 
 def _add_align_flags(p) -> None:
-    """Device selection, @PG suppression, and the bwa alignment flags of
-    ``repro_torch.options.BWA_FLAGS``."""
+    """Device selection, fixed-base chunking, @PG suppression, and the bwa
+    alignment flags of ``repro_torch.options.BWA_FLAGS``."""
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda: the hand-written kernels on the card (an "
                         "error without one); cpu: their plain PyTorch "
                         "versions [cuda]")
+    p.add_argument("-K", "--chunk-bases", type=int, default=None,
+                   metavar="INT",
+                   help="process INT input bases per chunk (bwa -K): "
+                        "batch decomposition — and output — becomes "
+                        "batch-size-invariant")
+    p.add_argument("--pe-bootstrap", action="store_true",
+                   help="estimate PE insert-size stats ONCE on the "
+                        "leading chunk and freeze them for the whole run "
+                        "(needs -K and paired input)")
     p.add_argument("--no-pg", action="store_true",
                    help="omit the @PG header line (whose CL differs per "
                         "invocation) — for byte-comparing runs")
@@ -156,8 +182,7 @@ def _add_align_flags(p) -> None:
     p.add_argument("-T", type=int, default=None, metavar="INT",
                    help="minimum output alignment score [30]")
     p.add_argument("-U", type=int, default=None, metavar="INT",
-                   help="unpaired read-pair penalty [17] (stored; "
-                        "paired-end is not ported yet)")
+                   help="unpaired read-pair penalty [17]")
     p.add_argument("-a", action="store_true", default=None,
                    help="output all alignments for SE reads (secondary "
                         "0x100 records; MAPQ 0)")
@@ -186,19 +211,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "bwa's srand48 seed)")
     ix.set_defaults(fn=cmd_index)
 
-    mm = sub.add_parser("mem", help="align single-end FASTQ reads, emit SAM")
+    mm = sub.add_parser("mem", help="align FASTQ reads, emit SAM")
     mm.add_argument("ref", help="index bundle prefix (or FASTA to build "
                                 "in-memory)")
     mm.add_argument("reads1", help="FASTQ (plain or .gz)")
     mm.add_argument("reads2", nargs="?", default=None,
-                    help="mate FASTQ (paired-end is not ported yet)")
+                    help="mate FASTQ for split paired-end input")
     mm.add_argument("-o", "--output", default=None,
                     help="output SAM path (default: stdout)")
     mm.add_argument("-b", "--batch-size", type=int, default=512,
-                    help="reads per pipeline batch (default 512)")
+                    help="reads (pairs) per pipeline batch; PE insert-size "
+                         "stats are per-batch, as in bwa (default 512)")
     mm.add_argument("-p", "--interleaved", action="store_true",
-                    help="reads1 is interleaved R1/R2 (paired-end is not "
-                         "ported yet)")
+                    help="reads1 is interleaved R1/R2 (bwa mem -p)")
     _add_align_flags(mm)
     mm.add_argument("--profile", default=None, metavar="JSON",
                     help="enable telemetry and write the kernel-breakdown "

@@ -1,7 +1,9 @@
-"""Single-end BWA-MEM pipeline: SMEM -> SAL -> CHAIN -> BSW -> SAM-FORM.
+"""BWA-MEM pipeline: SMEM -> SAL -> CHAIN -> BSW -> SAM-FORM.
 
-The PyTorch counterpart of ``repro.core.pipeline``'s stage-major SE
-driver (``run_se_batched``, the paper's Fig 2 right): every stage runs
+The PyTorch counterpart of ``repro.core.pipeline``'s stage-major
+drivers (``run_se_batched``, the paper's Fig 2 right, and
+``run_pe_batched``, which runs both ends through it and then the
+paired-end tail of ``repro_torch.pe``): every stage runs
 over the WHOLE batch before the next stage; lockstep-batched SMEM whose
 occ lookups run on the device, a single-gather SAL on the device, and
 inter-task BSW with length-sorting (§5.3.1) through the bsw kernel.
@@ -11,7 +13,8 @@ bwa-mem2 (§5.3.2).
 
 The decision logic (``chain2aln``, the executor, ``mark_and_finalize``)
 is the reference's own code, so the SAM is byte-identical to the
-reference's ``batched`` and ``pallas`` engines.
+reference's ``batched`` and ``pallas`` engines.  PE mate rescue reuses
+``BatchedBSWExecutor``, so its extensions go through the same kernel.
 """
 
 from __future__ import annotations
@@ -490,3 +493,24 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
                          cells_total=execu.stats["cells_total"])
     return results, stats
 
+
+
+def run_pe_batched(idx: FMIndex, reads1: np.ndarray,
+                   reads2: np.ndarray,
+                   opt: PipelineOptions = PipelineOptions(),
+                   pe_opt=None, names=None):
+    """Paired-end driver (paper's organisation extended to PE):
+    stage-major batched SE alignment over BOTH ends at once — one lockstep
+    SMEM loop and shared BSW blocks — then the whole batch's mate-rescue
+    extensions pooled through the length-sorted BSW executor.  Returns
+    (sam_lines, stats)."""
+    from ..pe import pair_pipeline   # deferred: repro_torch.pe imports this
+    n = len(reads1)
+    both = np.concatenate([reads1, reads2], axis=0)
+    res, s = run_se_batched(idx, both, opt)
+    res1, res2 = res[:n], res[n:]
+    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
+                                  pe_opt, names=names)
+    stats = obs.Snapshot(s)
+    stats.update(pstats)
+    return lines, stats

@@ -1,7 +1,9 @@
-"""The "cuda" engine: the stage-major SE pipeline on one device, its hot
-kernels (fmocc extension rounds, BSW blocks) through ``kernels``.
+"""The "cuda" engine: the stage-major SE and PE pipelines on one device,
+their hot kernels (fmocc extension rounds, BSW blocks, including the PE
+mate-rescue blocks) through ``kernels``.
 
-It is ``core.pipeline.run_se_batched`` with the occ layout picked by the
+It is ``core.pipeline.run_se_batched`` / ``run_pe_batched`` with the occ
+layout picked by the
 attach-time sweep — the paper's eta experiment (§4.4 / Table 4) run on
 the card: each (layout, threads-per-block) candidate is timed with CUDA
 events on a synthetic batch of extension entries, and the fastest
@@ -11,7 +13,7 @@ On the CPU there is no kernel to tune: the plain version runs with the
 default candidate.
 
 Replaces ``repro.kernels.engine``'s Pallas sweep (``sweep_occ_configs`` /
-``attach_occ_config``) and ``run_se_pallas``.
+``attach_occ_config``), ``run_se_pallas`` and ``run_pe_pallas``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.pipeline import PipelineOptions, run_se_batched
+from ..core.pipeline import (PipelineOptions, run_pe_batched,
+                             run_se_batched)
 from .fmocc.ops import DIRECTIONS, ext_round, make_occ_fn
 
 #: (layout, threads per block) candidates the sweep times on the card
@@ -146,3 +149,15 @@ def run_se_cuda(idx, reads, opt: PipelineOptions = PipelineOptions()):
     results, stats = run_se_batched(idx, reads, opt)
     stats["occ_kernel"] = f"{cfg.layout}/{cfg.block}"
     return results, stats
+
+
+def run_pe_cuda(idx, reads1, reads2,
+                opt: PipelineOptions = PipelineOptions(),
+                pe_opt=None, names=None):
+    """PE driver of the "cuda" engine.  Returns (sam_lines, stats);
+    ``stats["occ_kernel"]`` as in ``run_se_cuda``."""
+    cfg = attach_occ_config(idx, opt.device)
+    lines, stats = run_pe_batched(idx, reads1, reads2, opt, pe_opt,
+                                  names=names)
+    stats["occ_kernel"] = f"{cfg.layout}/{cfg.block}"
+    return lines, stats

@@ -9,9 +9,9 @@ field per knob, projects back onto the per-stage dataclasses via
 ``mem_options()`` / ``chain_options()`` / ``bsw_params()`` /
 ``pipeline_options()`` (the stage modules keep their own types so
 kernels never grow a dependency on this layer), and maps bwa-mem's
-command-line flags onto fields via ``from_flags``.  The paired-end
-fields are parsed and stored; paired-end alignment is not ported yet.
-``device`` says where the pipeline runs: "cuda" (the default) or "cpu".
+command-line flags onto fields via ``from_flags``; ``pe_options()``
+projects the paired-end fields.  ``device`` says where the pipeline
+runs: "cuda" (the default) or "cpu".
 
     -k min seed length     -w band width          -r split factor
     -c max SA occurrences  -A match score         -B mismatch penalty
@@ -32,6 +32,7 @@ from .core.bsw import BSWParams
 from .core.chain import ChainOptions
 from .core.pipeline import PipelineOptions
 from .core.smem import MemOptions
+from .pe.rescue import PEOptions
 
 ENGINE_CUDA = "cuda"
 
@@ -72,7 +73,7 @@ class AlignOptions:
     softclip_supp: bool = False     # -Y: soft-clip supplementary records
     read_group: str | None = None   # -R '@RG\tID:...' (None: no RG)
 
-    # --- paired-end (parsed and stored; not ported yet) ---
+    # --- paired-end (PEOptions) ---
     max_ins: int = 10000
     pen_unpaired: int = 17          # -U
     max_matesw: int = 2
@@ -121,6 +122,14 @@ class AlignOptions:
                                all_hits=self.all_hits,
                                softclip_supp=self.softclip_supp,
                                device=self.device)
+
+    def pe_options(self) -> PEOptions:
+        return PEOptions(max_ins=self.max_ins,
+                         pen_unpaired=self.pen_unpaired,
+                         max_matesw=self.max_matesw,
+                         rescue_min_seed=self.rescue_min_seed,
+                         min_score=self.min_score,
+                         mapq_blend=self.mapq_blend)
 
     def replace(self, **kw) -> "AlignOptions":
         return dataclasses.replace(self, **kw)

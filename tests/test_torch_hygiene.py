@@ -2,8 +2,9 @@
 
 * importing every ``repro_torch`` module and ``chip_smoke.py`` loads no
   JAX and nothing of the ``repro`` package;
-* without a CUDA device the entry points (``Aligner``, ``cli mem``) raise
-  or exit non-zero at their default device instead of running on the CPU;
+* without a CUDA device the entry points (``Aligner``, ``align_pairs``,
+  ``cli mem``, single-end and paired) raise or exit non-zero at their
+  default device instead of running on the CPU;
 * a kernel wrapper given a tensor on any device other than the CPU or a
   CUDA device raises instead of running its plain version.
 """
@@ -20,7 +21,8 @@ import torch
 from repro_torch import api, cli
 from repro_torch.core import fmindex as tfm
 from repro_torch.core.bsw import BSWParams
-from repro_torch.data import make_reference, write_fasta, write_fastq
+from repro_torch.data import (make_reference, write_fasta, write_fastq,
+                              write_fastq_pair)
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.bsw import bsw_call, bsw_extend_kernel
 from repro_torch.kernels.fmocc import ext_round, occ
@@ -73,7 +75,10 @@ def tiny(tmp_path_factory):
     fa, fq = str(d / "ref.fa"), str(d / "r.fq")
     write_fasta(fa, ref)
     write_fastq(fq, np.tile(ref[100:201], (2, 1)))
-    return tfm.build_index(ref), fa, fq, d
+    fq1, fq2 = str(d / "r1.fq"), str(d / "r2.fq")
+    write_fastq_pair(fq1, fq2, np.tile(ref[100:201], (2, 1)),
+                     np.tile(ref[400:501], (2, 1)))
+    return tfm.build_index(ref), fa, fq, d, fq1, fq2
 
 
 def test_aligner_without_cuda_raises(no_cuda, tiny):
@@ -88,8 +93,29 @@ def test_aligner_without_cuda_raises(no_cuda, tiny):
     assert api.Aligner(idx, device="cpu").options.device == "cpu"
 
 
+def test_align_pairs_without_cuda_raises(no_cuda, tiny):
+    idx = tiny[0]
+    r = np.zeros((2, 50), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.Aligner(idx).align_pairs(r, r)
+    got = api.Aligner(idx, device="cpu").align_pairs(r, r)
+    assert got.paired and len(got.sam()) == 4
+
+
+def test_cli_paired_mem_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
+    _, fa, _, d, fq1, fq2 = tiny
+    out = d / "pe.sam"
+    assert cli.main(["mem", fa, fq1, fq2, "-o", str(out)]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not out.exists()
+    assert cli.main(["mem", fa, fq1, fq2, "-o", str(out),
+                     "--device", "cpu"]) == 0
+    assert len([ln for ln in out.read_text().splitlines()
+                if not ln.startswith("@")]) == 4
+
+
 def test_cli_mem_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
-    _, fa, fq, d = tiny
+    _, fa, fq, d = tiny[:4]
     out = d / "out.sam"
     assert cli.main(["mem", fa, fq, "-o", str(out)]) != 0
     assert "no CUDA device" in capsys.readouterr().err

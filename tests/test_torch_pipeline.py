@@ -148,13 +148,6 @@ def test_cli_identity_with_reference_cli(files):
     assert "\n@SQ\tSN:chr1\t" in body(out_t)
 
 
-def test_cli_paired_input_refused(files, capsys):
-    d, fa, fq = files
-    assert tcli.main(["mem", fa, fq, fq, "--device", "cpu"]) == 2
-    assert "paired-end is not ported yet" in capsys.readouterr().err
-    assert tcli.main(["mem", "-p", fa, fq, "--device", "cpu"]) == 2
-
-
 def test_bundle_from_reference_store(tmp_path, contig_world):
     contigs, reads, idx = contig_world
     r_save_index(tmp_path / "rb", r_build_contig_index(contigs))
