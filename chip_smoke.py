@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives single-end and paired-end ``mem`` on the card through the port's
-own entry points and checks every hand-written kernel against its plain
-PyTorch version.
+Drives single-end and paired-end ``mem``, sharded ``mem`` and ``memdist``
+on the card through the port's own entry points and checks every
+hand-written kernel against its plain PyTorch version.
 Phases (each prints one line, any failure raises and exits non-zero):
 
 1. environment: Python, torch, CUDA and nvcc versions; the card's name and
@@ -52,7 +52,24 @@ Phases (each prints one line, any failure raises and exits non-zero):
    share, rescued mates, FR's insert-size estimate, truth recovery per
    end, the stage breakdown and rescue cells useful/total;
 8. PE card against CPU: the first 128 pairs, as one batch, through
-   ``Aligner.align_pairs`` on the card and on the CPU give identical SAM.
+   ``Aligner.align_pairs`` on the card and on the CPU give identical SAM;
+9. sharded mem: what the live exporter cost phase 5; then the first 256
+   reads of phase 5 through ``repro_torch.cli mem --shard i/2`` for
+   i = 0, 1, each with ``--profile``, ``--runlog``, ``--live`` and
+   ``--trace``: the two bodies interleaved by read ordinal are phase 5's
+   lines of those reads, ``report --merge`` counts every read once, each
+   run log runs from ``run_start`` to ``run_end`` status ok, the live files
+   parse and each trace holds ``kernel.fmocc`` and ``kernel.bsw`` spans;
+10. memdist: 384 reads through ``repro_torch.cli memdist --device cuda
+   -K 9696 -n 3`` (4 chunks, shards of 2/1/1) with shard 0 killed before
+   its second chunk (``REPRO_FT_INJECT=0:1``): one retry that resumes from
+   the checkpoint, and SAM byte-identical to ``mem -K 9696``;
+11. memdist on pairs: the first 128 pairs of phase 7 through ``memdist
+   -K 12928 -n 2 --pe-bootstrap`` (2 chunks), byte-identical to ``mem -K
+   12928 --pe-bootstrap``.
+Phases 5, 7 and 9-11 each set the launch counters to 0 just before their
+run and read them just after, and fail if a kernel of the path was not
+launched.
 
 The line before the last is one JSON object with every kernel's launches,
 error, times and bound; the last line is ``{"ok": true, "device": ...}``.
@@ -61,7 +78,11 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -97,6 +118,7 @@ from repro_torch.kernels.bsw.ops import (bsw_call,  # noqa: E402
                                           bsw_extend_kernel, launch_geometry)
 from repro_torch.kernels.bsw.ref import bsw_ref  # noqa: E402
 from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
+                                        SWEEP_LAUNCHES, SWEEP_REPS,
                                         attach_occ_config, sweep_entries,
                                         sweep_timings)
 from repro_torch.kernels.fmocc.ops import (DIRECTIONS, LAYOUTS,  # noqa: E402
@@ -111,6 +133,11 @@ N_CPU_READS = 256
 N_PAIRS = 1024             # the PE phase: 2,048 reads, the SE phase's width
 N_RESCUE_PAIRS = 256
 N_CPU_PAIRS = 128
+N_SHARD_READS = 256        # phase 9: the first reads of phase 5, 2 shards
+N_MEMDIST_READS = 384      # phase 10
+MEMDIST_K = 96 * READ_LEN  # 9,696 bases: 4 chunks of 96 reads
+N_MEMDIST_PAIRS = 128      # phase 11: the first pairs of phase 7
+MEMDIST_PE_K = 64 * 2 * READ_LEN   # 12,928 bases: 2 chunks of 64 pairs
 PAIR_SIM = dict(insert_mean=300, insert_std=30, burst_frac=0.15)
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
@@ -727,7 +754,8 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
           kernels=json.dumps(bd.get("kernels", {}), separators=(",", ":")),
           unattributed_s=bd["unattributed_s"])
     return dict(launches=launches, rescue_launches=rescue_launches,
-                occ_kernel=picked.split("/")[0], fq1=fq1, fq2=fq2)
+                occ_kernel=picked.split("/")[0], fq1=fq1, fq2=fq2, r1=r1,
+                r2=r2)
 
 
 def cpu_vs_card_pe(fa, fq1, fq2) -> None:
@@ -749,6 +777,244 @@ def cpu_vs_card_pe(fa, fq1, fq2) -> None:
           identical=True, n_rescued=card.stats["n_rescued"],
           n_proper=card.stats["n_proper"], card_s=f"{t_card:.1f}",
           cpu_s=f"{time.perf_counter() - t0 - t_card:.1f}")
+
+
+# ---------------------------------------------------------------------
+# phases 9 to 11: sharded mem, memdist, memdist on pairs
+# ---------------------------------------------------------------------
+
+def sweep_launches() -> dict:
+    """Launches of one attach-time occ sweep, by kernel: per candidate a
+    warmup and ``SWEEP_REPS`` timed reps of 1 + ``SWEEP_LAUNCHES``."""
+    out = dict.fromkeys(kernels.launch_counts(), 0)
+    for layout, _ in SWEEP_CANDIDATES:
+        out[f"fmocc_ext_{layout}"] += 1 + SWEEP_REPS * (1 + SWEEP_LAUNCHES)
+    return out
+
+
+def require_path_launches(launches: dict, n_sweeps: int, what: str) -> None:
+    """The run launched BSW, and SMEM rounds beyond its ``n_sweeps``
+    sweeps' launches of the round kernel."""
+    sweep = sweep_launches()
+    if launches["bsw"] <= 0:
+        raise AssertionError(f"{what}: the bsw kernel was not launched")
+    if not any(launches[k] > n_sweeps * sweep[k] for k in sweep
+               if k.startswith("fmocc")):
+        raise AssertionError(f"{what}: no SMEM round kernel launched beyond "
+                             f"the sweep ({launches})")
+
+
+def run_cli(argv: list[str], what: str) -> tuple[float, dict]:
+    """``repro_torch.cli`` on ``argv`` with the launch counters set to 0
+    just before and read just after; (wall seconds, launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}")
+    return wall, launches
+
+
+def by_read(body: list[str]) -> list[tuple[str, list[str]]]:
+    """SAM body lines grouped into (QNAME, its consecutive lines)."""
+    groups = []
+    for ln in body:
+        name = ln.split("\t", 1)[0]
+        if groups and groups[-1][0] == name:
+            groups[-1][1].append(ln)
+        else:
+            groups.append((name, [ln]))
+    return groups
+
+
+def live_export_cost(prof: pathlib.Path, wall_s: float) -> None:
+    """What the live exporter cost phase 5's ``--profile`` run: its
+    flushes (the ``seq`` of the last one) times the time of one flush of
+    that run's snapshot, against the run's wall."""
+    stem = prof.with_suffix("")
+    flushes = json.loads(pathlib.Path(f"{stem}.live.json").read_text())["seq"]
+    snap = obs.read_profile(prof)["snapshot"]
+    exp = obs.LiveExporter(prof.parent / "cost.live", interval=3600.0)
+    exp.start(lambda: snap)
+    t0 = time.perf_counter()
+    for _ in range(TIMING_REPS):
+        exp.flush()
+    flush_ms = 1e3 * (time.perf_counter() - t0) / TIMING_REPS
+    exp.stop()
+    phase("live_export", mem_flushes=flushes, flush_ms=f"{flush_ms:.3f}",
+          share_of_mem_wall=f"{flushes * flush_ms / 1e3 / wall_s:.5f}")
+
+
+def mem_shard(fa, tmp: pathlib.Path, reads, body: list[str]) -> dict:
+    """Phase 9: the first ``N_SHARD_READS`` reads of phase 5 through
+    ``repro_torch.cli mem --shard i/2`` for i = 0, 1, each with a profile,
+    a run log, live files and a trace.  The two bodies, interleaved by
+    read ordinal (the shard filter keeps ordinal mod 2), are phase 5's
+    lines of those reads; the profiles merge to every read once."""
+    fq = tmp / "shard_reads.fq"
+    names = [f"read{r}" for r in range(N_SHARD_READS)]
+    write_fastq(fq, reads[:N_SHARD_READS], names)
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+    shards = []
+    for i in range(2):
+        p = {k: tmp / f"shard{i}.{k}" for k in
+             ("sam", "json", "runlog.jsonl", "trace.json")}
+        wall, got = run_cli(
+            ["mem", str(fa), str(fq), "-o", str(p["sam"]), "--device",
+             "cuda", "--shard", f"{i}/2", "--no-pg", "--profile",
+             str(p["json"]), "--runlog", str(p["runlog.jsonl"]), "--live",
+             str(tmp / f"shard{i}.live"), "--trace", str(p["trace.json"])],
+            f"repro_torch.cli mem --shard {i}/2")
+        require_path_launches(got, 1, f"mem --shard {i}/2")
+        for k, v in got.items():
+            launches[k] += v
+        events = obs.read_runlog(p["runlog.jsonl"])
+        if (events[0]["event"], events[-1]["event"],
+                events[-1]["status"]) != ("run_start", "run_end", "ok"):
+            raise AssertionError(f"shard {i}: run log does not run from "
+                                 f"run_start to run_end status=ok")
+        live = json.loads((tmp / f"shard{i}.live.json").read_text())
+        prom = (tmp / f"shard{i}.live.prom").read_text()
+        if "repro_io_reads" not in prom or "snapshot" not in live:
+            raise AssertionError(f"shard {i}: live files lack the run's "
+                                 f"metrics")
+        trace = json.loads(p["trace.json"].read_text())["traceEvents"]
+        spans = collections.Counter(e["name"] for e in trace
+                                    if e.get("ph") == "X")
+        for k in ("kernel.fmocc", "kernel.bsw"):
+            if spans[k] == 0:
+                raise AssertionError(f"shard {i}: no {k} span in the trace")
+        shards.append(dict(
+            wall=wall, body=sam_body(p["sam"]), profile=str(p["json"]),
+            events=dict(collections.Counter(e["event"] for e in events)),
+            spans={k: spans[k] for k in ("kernel.fmocc", "kernel.bsw",
+                                         "smem", "bsw", "finalize")},
+            live_flushes=live["seq"]))
+    streams = [iter(by_read(s["body"])) for s in shards]
+    merged = []
+    for r, name in enumerate(names):
+        got_name, lines = next(streams[r % 2])
+        if got_name != name:
+            raise AssertionError(f"shard {r % 2} holds {got_name} where "
+                                 f"{name} belongs")
+        merged.extend(lines)
+    keep = set(names)
+    if merged != [ln for ln in body if ln.split("\t", 1)[0] in keep]:
+        raise AssertionError("the interleaved shard bodies differ from the "
+                             "unsharded run's lines")
+    merged_json = tmp / "shards_merged.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["report", "--merge", "-o", str(merged_json),
+                       *(s["profile"] for s in shards)])
+    io_reads = obs.read_profile(merged_json)["snapshot"]["io_reads"]
+    if rc != 0 or io_reads != N_SHARD_READS:
+        raise AssertionError(f"report --merge: exit {rc}, io_reads "
+                             f"{io_reads}")
+    phase("mem_shard", reads=N_SHARD_READS, shards=2,
+          wall_s=",".join(f"{s['wall']:.2f}" for s in shards),
+          identical_to_mem=True, merged_io_reads=io_reads,
+          events=json.dumps([s["events"] for s in shards],
+                            separators=(",", ":")),
+          spans=json.dumps([s["spans"] for s in shards],
+                           separators=(",", ":")),
+          live_flushes=",".join(str(s["live_flushes"]) for s in shards),
+          launches=json.dumps(launches, separators=(",", ":")))
+    return launches
+
+
+def memdist_se(fa, tmp: pathlib.Path, reads) -> dict:
+    """Phase 10: ``N_MEMDIST_READS`` reads through ``repro_torch.cli
+    memdist -K 9696 -n 3`` (4 chunks of 96 reads, shards of 2/1/1) with
+    shard 0 killed before its second chunk (``REPRO_FT_INJECT=0:1``), so
+    the retry resumes from its first checkpoint; byte-identical to ``mem
+    -K 9696`` on the same reads."""
+    fq = tmp / "memdist.fq"
+    write_fastq(fq, reads[:N_MEMDIST_READS],
+                [f"read{r}" for r in range(N_MEMDIST_READS)])
+    out, rl = tmp / "memdist.sam", tmp / "memdist.runlog.jsonl"
+    os.environ["REPRO_FT_INJECT"] = "0:1"
+    try:
+        wall, launches = run_cli(
+            ["memdist", str(fa), str(fq), "-o", str(out), "--device", "cuda",
+             "-K", str(MEMDIST_K), "-n", "3", "--no-pg", "--runlog",
+             str(rl)], "repro_torch.cli memdist")
+    finally:
+        del os.environ["REPRO_FT_INJECT"]
+    require_path_launches(launches, 1, "memdist")
+    events = obs.read_runlog(rl)
+    plan = next(e for e in events if e["event"] == "job_plan")
+    if plan["shards"] != [[0, 0, 2], [1, 2, 3], [2, 3, 4]]:
+        raise AssertionError(f"memdist planned {plan['shards']}")
+    retries = [e for e in events if e["event"] == "shard_retry"]
+    if len(retries) != 1 or retries[0]["shard"] != 0:
+        raise AssertionError(f"memdist logged {len(retries)} shard "
+                             f"retries, not one of shard 0")
+    resumed = [e for e in events
+               if e["event"] == "shard_start" and e["resumed"]]
+    if [(e["shard"], e["chunks_done"]) for e in resumed] != [(0, 1)]:
+        raise AssertionError("the retried shard did not resume after its "
+                             "first chunk")
+    shard_walls = {e["shard"]: e["wall_s"] for e in events
+                   if e["event"] == "shard_end"}
+    merge = next(e for e in events if e["event"] == "merge")
+    mem_out = tmp / "memdist_mem.sam"
+    mem_wall, mem_launches = run_cli(
+        ["mem", str(fa), str(fq), "-o", str(mem_out), "--device", "cuda",
+         "-K", str(MEMDIST_K), "--no-pg"], "repro_torch.cli mem -K")
+    require_path_launches(mem_launches, 1, "mem -K")
+    if out.read_bytes() != mem_out.read_bytes():
+        raise AssertionError("memdist and mem -K SAM differ")
+    phase("memdist", reads=N_MEMDIST_READS, chunks=plan["n_chunks"],
+          shards="2/1/1", wall_s=f"{wall:.2f}",
+          mem_k_wall_s=f"{mem_wall:.2f}", retries=len(retries),
+          shard_wall_s=json.dumps(shard_walls, separators=(",", ":")),
+          merge_ms=f"{merge['merge_s'] * 1e3:.2f}", identical_to_mem_k=True,
+          sam_bytes=len(out.read_bytes()),
+          launches=json.dumps(launches, separators=(",", ":")),
+          launches_mem_k=json.dumps(mem_launches, separators=(",", ":")))
+    return launches
+
+
+def memdist_pe(fa, tmp: pathlib.Path, r1, r2) -> dict:
+    """Phase 11: the first ``N_MEMDIST_PAIRS`` pairs of phase 7 through
+    ``repro_torch.cli memdist -K 12928 -n 2 --pe-bootstrap`` (2 chunks of
+    64 pairs, insert-size stats frozen from the first); byte-identical to
+    ``mem -K 12928 --pe-bootstrap``."""
+    fq1, fq2 = tmp / "memdist_r1.fq", tmp / "memdist_r2.fq"
+    write_fastq_pair(fq1, fq2, r1[:N_MEMDIST_PAIRS], r2[:N_MEMDIST_PAIRS])
+    out, rl = tmp / "memdist_pe.sam", tmp / "memdist_pe.runlog.jsonl"
+    common = ["-K", str(MEMDIST_PE_K), "--pe-bootstrap", "--device", "cuda",
+              "--no-pg"]
+    wall, launches = run_cli(
+        ["memdist", str(fa), str(fq1), str(fq2), "-o", str(out), "-n", "2",
+         "--runlog", str(rl), *common], "repro_torch.cli memdist (paired)")
+    require_path_launches(launches, 1, "memdist (paired)")
+    events = obs.read_runlog(rl)
+    plan = next(e for e in events if e["event"] == "job_plan")
+    if plan["n_chunks"] != 2 or not plan["pe_frozen"]:
+        raise AssertionError(f"memdist (paired) planned {plan}")
+    mem_out = tmp / "memdist_pe_mem.sam"
+    mem_wall, mem_launches = run_cli(
+        ["mem", str(fa), str(fq1), str(fq2), "-o", str(mem_out), *common],
+        "repro_torch.cli mem -K --pe-bootstrap")
+    require_path_launches(mem_launches, 1, "mem -K --pe-bootstrap")
+    if out.read_bytes() != mem_out.read_bytes():
+        raise AssertionError("memdist and mem -K --pe-bootstrap SAM differ")
+    body = sam_body(out)
+    phase("memdist_pe", pairs=N_MEMDIST_PAIRS, chunks=plan["n_chunks"],
+          wall_s=f"{wall:.2f}", mem_k_wall_s=f"{mem_wall:.2f}",
+          identical_to_mem_k=True, lines=len(body),
+          proper=sum(bool(int(ln.split("\t")[1]) & 0x2) for ln in body),
+          shard_wall_s=json.dumps({e["shard"]: e["wall_s"] for e in events
+                                   if e["event"] == "shard_end"},
+                                  separators=(",", ":")),
+          launches=json.dumps(launches, separators=(",", ":")),
+          launches_mem_k=json.dumps(mem_launches, separators=(",", ":")))
+    return launches
 
 
 def main() -> int:
@@ -839,7 +1105,7 @@ def main() -> int:
                        "cuda", "-b", str(N_READS), "--no-pg", "--profile",
                        str(prof)])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall_mem = time.perf_counter() - t0
         launches = kernels.launch_counts()
         if rc != 0:
             raise AssertionError(f"repro_torch.cli mem exited {rc}")
@@ -858,8 +1124,8 @@ def main() -> int:
         bd = payload["breakdown"]
         stages = {r["stage"]: r["time_s"] for r in bd["stages"]
                   if r["time_s"]}
-        phase("mem", reads=N_READS, wall_s=f"{wall:.2f}",
-              reads_per_s=f"{N_READS / wall:.1f}", occ_kernel=picked,
+        phase("mem", reads=N_READS, wall_s=f"{wall_mem:.2f}",
+              reads_per_s=f"{N_READS / wall_mem:.1f}", occ_kernel=picked,
               launches=json.dumps(launches, separators=(",", ":")),
               smem_rounds=int(snap["smem_rounds"]),
               smem_h2d_bytes=int(snap["smem_h2d_bytes"]),
@@ -896,12 +1162,26 @@ def main() -> int:
         # 8. the card's PE SAM against the CPU path's on the first pairs
         cpu_vs_card_pe(fa, pe_run["fq1"], pe_run["fq2"])
 
+        # 9. sharded mem with run logs, live files, traces and a merge
+        live_export_cost(prof, wall_mem)
+        launches_shard = mem_shard(fa, tmp, reads, body)
+
+        # 10. memdist with an injected kill, against mem -K
+        launches_memdist = memdist_se(fa, tmp, reads)
+
+        # 11. memdist on pairs, against mem -K --pe-bootstrap
+        launches_memdist_pe = memdist_pe(fa, tmp, pe_run["r1"],
+                                         pe_run["r2"])
+
     report = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches[name],
                        "launches_pe": launches_pe[name],
+                       "launches_mem_shard": launches_shard[name],
+                       "launches_memdist": launches_memdist[name],
+                       "launches_memdist_pe": launches_memdist_pe[name],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": None,

@@ -35,6 +35,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import sys
+import threading
+import time
 from typing import Callable, Iterable
 
 import numpy as np
@@ -318,7 +320,7 @@ class Aligner:
         options = options or AlignOptions()
         dev = resolve_device(options.device if device is None else device)
         self.options = options.replace(device=str(dev))
-        self._eng = get_engine(self.options.engine)   # fail fast on a bad name
+        get_engine(self.options.engine)        # fail fast on a bad name
         if telemetry is True:
             telemetry = obs.Telemetry()
         elif telemetry is False:
@@ -355,6 +357,9 @@ class Aligner:
 
     # -- internals --
 
+    def _engine(self, override: str | None) -> Engine:
+        return get_engine(override or self.options.engine)
+
     @contextlib.contextmanager
     def _scope(self):
         """Ambient telemetry scope for one facade call: a FRESH registry
@@ -381,7 +386,8 @@ class Aligner:
 
     # -- alignment --
 
-    def align(self, batch, *, names=None, lens=None) -> BatchResult:
+    def align(self, batch, *, names=None, lens=None,
+              engine: str | None = None) -> BatchResult:
         """Single-end alignment of one batch -> ``BatchResult``.
 
         ``batch`` is a ``repro_torch.io.stream.ReadBatch``, a (B, L) uint8
@@ -391,7 +397,7 @@ class Aligner:
         rather than fed to the kernels.
         """
         reads, names, lens = _coerce_se(batch, names, lens)
-        eng = self._eng
+        eng = self._engine(engine)
         popt = self.options.pipeline_options()
         B = len(reads)
         stats = obs.Snapshot()
@@ -425,7 +431,8 @@ class Aligner:
         return BatchResult(names=names, lens=lens, stats=stats,
                            paired=False, alignments=results, _sam_body=flat)
 
-    def align_pairs(self, batch1, batch2=None, *, names=None) -> BatchResult:
+    def align_pairs(self, batch1, batch2=None, *, names=None,
+                    engine: str | None = None) -> BatchResult:
         """Paired-end alignment -> ``BatchResult`` whose records carry
         mate fields, proper-pair flags and the pair-aware MAPQ blend.
 
@@ -436,7 +443,7 @@ class Aligner:
         per-batch insert-size estimates.
         """
         r1, r2, names, lens = _coerce_pe(batch1, batch2, names)
-        eng = self._eng
+        eng = self._engine(engine)
         if eng.pe is None:
             raise ValueError(f"engine {eng.name!r} has no paired-end driver")
         peopt = self.options.pe_options()
@@ -454,23 +461,26 @@ class Aligner:
                            paired=True, alignments=None,
                            _sam_body=self._tag(lines))
 
-    def estimate_pe_stats(self, batch1, batch2=None) -> list:
+    def estimate_pe_stats(self, batch1, batch2=None, *,
+                          engine: str | None = None) -> list:
         """Bootstrap insert-size stats from one leading pair batch.
 
         SE-aligns both ends and runs the exact ``mem_pestat`` estimator
         the PE driver uses, so freezing the result (``self.pe_stats`` /
         ``PEOptions.frozen_pes``) reproduces byte-for-byte what a plain
-        ``align_pairs`` of that same batch would have estimated.
+        ``align_pairs`` of that same batch would have estimated.  This is
+        how ``repro_torch.dist.run`` gives every shard one shared estimate.
 
         Returns ``PairStat[4]`` (does NOT mutate ``self.pe_stats``).
         """
         from .pe import estimate_pestat
         r1, r2, _names, _lens = _coerce_pe(batch1, batch2, None)
+        eng = self._engine(engine)
         popt = self.options.pipeline_options()
         n = len(r1)
         both = np.concatenate([r1, r2], axis=0)
         with self._scope():
-            res, _ = self._eng.se(self.index, both, popt)
+            res, _ = eng.se(self.index, both, popt)
         return estimate_pestat(res[:n], res[n:], self.index,
                                max_ins=self.options.pe_options().max_ins)
 
@@ -487,8 +497,17 @@ class Aligner:
                          f"\tCL:{cl}")
         return _contig_header(self.index, extra=extra)
 
+    def _trace_tail(self) -> list | None:
+        """Last trace events (for a crash bundle), if tracing is on."""
+        if self.telemetry is None or self.telemetry.tracer is None:
+            return None
+        return self.telemetry.tracer.to_dict()["traceEvents"][-32:]
+
     def stream_sam(self, batches: Iterable, out=None, *, header: bool = True,
-                   cl: str | None = None) -> dict:
+                   cl: str | None = None, engine: str | None = None,
+                   runlog: "obs.RunLog | None" = None,
+                   export: "obs.LiveExporter | None" = None,
+                   total_reads: int | None = None) -> dict:
         """Drive an iterable of ``ReadBatch``/``PairBatch`` (e.g. from
         ``repro_torch.io.stream.open_batches``) through the engine and
         write SAM to ``out`` (a path, a file object, or None for stdout).
@@ -497,6 +516,20 @@ class Aligner:
         per-stage stats (an ``obs.Snapshot``).  With telemetry enabled the
         summary also carries the run-level I/O accounting (``time_io_s``,
         batch fill/pad-waste) captured around the batch iterator pulls.
+
+        Run-scoped observability (all optional, none touches the SAM
+        bytes):
+
+        * ``runlog`` — an ``obs.RunLog``: the call emits
+          ``stream_start``, one ``batch`` progress event per batch
+          (reads/s, ETA when ``total_reads`` is given), captures any
+          Python warnings raised while streaming as structured events,
+          emits a ``crash`` diagnostic bundle (partial stats Snapshot,
+          last-batch context, trace tail) if the loop dies, and
+          ``stream_end`` on success.
+        * ``export`` — an ``obs.LiveExporter``: started on a live
+          thread-safe view of the accumulating stats, stopped (with a
+          final flush) when the stream finishes or fails.
         """
         close = False
         if out is None:
@@ -508,37 +541,98 @@ class Aligner:
             close = True
         n_reads = n_records = n_batches = 0
         stats = obs.Snapshot()
+        stats_lock = threading.Lock()
+        t_start = time.perf_counter()
+        last_batch: dict | None = None
         it = iter(batches)
         _end = object()
+        if runlog is not None:
+            runlog.emit("stream_start",
+                        engine=engine or self.options.engine,
+                        out=(None if out is None or hasattr(out, "write")
+                             else str(out)),
+                        total_reads=total_reads)
         try:
             if header:
                 for ln in self.sam_header(cl=cl):
                     print(ln, file=fh)
             with self._scope() as run_reg:
-                # the run-level scope catches the generator-side io
-                # instrumentation: batch packing executes inside next()
-                while True:
-                    with obs.span("io"):
-                        b = next(it, _end)
-                    if b is _end:
-                        break
-                    if hasattr(b, "reads1"):
-                        res = self.align_pairs(b)
-                        n_reads += 2 * len(b)
-                    else:
-                        res = self.align(b)
-                        n_reads += len(b)
-                    with obs.span("io"):
-                        for ln in res.sam():
-                            print(ln, file=fh)
-                    n_records += res.n_records
-                    n_batches += 1
-                    stats.merge_in(res.stats)
+                def live_stats() -> obs.Snapshot:
+                    # thread-safe view for the exporter: copy under the
+                    # lock, then fold in the run registry's current state
+                    with stats_lock:
+                        merged = obs.Snapshot().merge_in(stats)
+                    if run_reg is not None:
+                        merged.merge_in(run_reg.snapshot())
+                    return merged
+
+                if export is not None:
+                    export.start(live_stats)
+                warn_ctx = (runlog.capture_warnings() if runlog is not None
+                            else contextlib.nullcontext())
+                try:
+                    with warn_ctx:
+                        # the run-level scope catches the generator-side
+                        # io instrumentation: batch packing executes
+                        # inside next()
+                        while True:
+                            with obs.span("io"):
+                                b = next(it, _end)
+                            if b is _end:
+                                break
+                            bt0 = time.perf_counter()
+                            paired = hasattr(b, "reads1")
+                            if paired:
+                                res = self.align_pairs(b, engine=engine)
+                                n_reads += 2 * len(b)
+                            else:
+                                res = self.align(b, engine=engine)
+                                n_reads += len(b)
+                            with obs.span("io"):
+                                for ln in res.sam():
+                                    print(ln, file=fh)
+                            n_records += res.n_records
+                            n_batches += 1
+                            with stats_lock:
+                                stats.merge_in(res.stats)
+                            last_batch = {
+                                "i": n_batches - 1, "size": len(b),
+                                "paired": paired,
+                                "first_name": (str(b.names[0])
+                                               if len(b.names) else None),
+                                "last_name": (str(b.names[-1])
+                                              if len(b.names) else None)}
+                            if runlog is not None:
+                                runlog.batch(
+                                    n_batches - 1,
+                                    reads=2 * len(b) if paired else len(b),
+                                    records=res.n_records,
+                                    batch_s=time.perf_counter() - bt0,
+                                    reads_total=n_reads,
+                                    records_total=n_records,
+                                    elapsed_s=(time.perf_counter()
+                                               - t_start),
+                                    total_reads=total_reads)
+                except BaseException as e:
+                    if runlog is not None:
+                        runlog.crash(e, snapshot=live_stats(),
+                                     batch=last_batch,
+                                     trace_tail=self._trace_tail())
+                    raise
+                finally:
+                    if export is not None:
+                        export.stop()
             if run_reg is not None:
                 stats.merge_in(run_reg.snapshot())
             fh.flush()
         finally:
             if close:
                 fh.close()
+        wall = time.perf_counter() - t_start
+        if runlog is not None:
+            runlog.emit("stream_end", n_reads=n_reads, n_records=n_records,
+                        n_batches=n_batches, wall_s=round(wall, 6),
+                        reads_per_s=round(n_reads / wall, 3) if wall > 0
+                        else 0.0)
         return dict(n_reads=n_reads, n_records=n_records,
                     n_batches=n_batches, stats=stats)

@@ -4,10 +4,19 @@
     python -m repro_torch.cli mem  ref.fa reads_1.fq[.gz] [reads_2.fq[.gz]]
                                    [-o out.sam] [--interleaved]
                                    [--device cuda|cpu] [--batch-size B]
-                                   [-K BASES] [--pe-bootstrap]
-                                   [--no-pg] [--profile prof.json]
+                                   [-K BASES] [--pe-bootstrap] [--no-pg]
+                                   [--shard i/n] [--profile prof.json]
+                                   [--trace trace.json] [--runlog run.jsonl]
+                                   [--live PREFIX] [--live-interval SECS]
                                    [-k -w -r -c -A -B -O -E -L -d -T -U -a -Y]
                                    [-R '@RG\\tID:...']
+    python -m repro_torch.cli memdist ref.fa reads_1.fq [reads_2.fq]
+                                   [-o out.sam] [-n WORKERS] [-K BASES]
+                                   [--device cuda|cpu] [--workdir DIR]
+                                   [--max-retries N] [--runlog run.jsonl]
+                                   [--no-pg] [...mem alignment flags]
+    python -m repro_torch.cli report prof.json              # one profile
+    python -m repro_torch.cli report --merge 'shard*.json'  # cross-shard
 
 ``index`` ingests a (gzipped) multi-contig FASTA (IUPAC ambiguity ->
 seeded random base, as bwa does), builds the concatenated-contig FM-index
@@ -20,16 +29,37 @@ the card; without a CUDA device it exits with an error rather than run
 on the CPU; ``cpu`` runs their plain PyTorch versions).  ``-K`` cuts the
 input into fixed-base chunks (bwa ``-K``); ``--pe-bootstrap`` estimates
 the insert-size stats once, on the leading chunk, and freezes them for
-the whole run.  Its SAM is byte-identical to ``repro.cli mem --engine
-pallas`` on the same input.
+the whole run.  ``--shard i/n`` keeps only every n-th read (pair), the
+``repro_torch.dist`` worker partition (by default this process's
+``torch.distributed`` rank, else everything).  Its SAM is
+byte-identical to ``repro.cli mem --engine pallas`` on the same input.
+
+``memdist`` is the resilient multi-shard form of ``mem``
+(``repro_torch.dist.run``): the input is cut into ``-K`` fixed-base
+chunks, contiguous chunk ranges run on a pool of worker threads over one
+``Aligner`` with a checkpoint after every chunk (a crashed or straggling
+shard is retried and RESUMES), the insert-size estimate is bootstrapped
+once from the leading chunk, and the per-shard SAMs merge in shard order
+— byte-identical to ``mem -K <same> --pe-bootstrap`` on the same input
+(compare with ``--no-pg``).  Fault injection for drills:
+``REPRO_FT_INJECT="shard:chunk[:fail|fatal]"``.  A workdir either
+package leaves behind resumes under the other.
 
 ``--profile out.json`` turns on telemetry and writes the paper-style
-kernel-breakdown profile.
+kernel-breakdown profile; ``--trace out.trace.json`` also collects
+Chrome trace events.  A profiled run also writes a structured JSONL run
+log (``--runlog``; manifest, per-batch progress, captured warnings,
+crash bundle) and live metrics files rewritten atomically during the run
+(``--live``; snapshot JSON + Prometheus textfile).  ``report``
+pretty-prints one saved profile, or merges several per-shard profiles
+into one breakdown plus a per-shard wall-time table with straggler
+flags.  Profiles of either package merge.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -84,20 +114,53 @@ def _options_from_args(args):
     return AlignOptions.from_flags(flags, device=args.device)
 
 
-def cmd_mem(args, argv) -> int:
-    from .api import Aligner, resolve_device
-    from .io.stream import open_batches
+def _obs_paths(args) -> tuple:
+    """Resolve the run-log path and live-export prefix.
 
+    Explicit ``--runlog``/``--live`` win ('off' disables); otherwise a
+    ``--profile prof.json`` run defaults to ``prof.runlog.jsonl`` +
+    ``prof.live.{json,prom}``.
+    """
+    stem = os.path.splitext(args.profile)[0] if args.profile else None
+    runlog = args.runlog
+    if runlog is None and stem:
+        runlog = f"{stem}.runlog.jsonl"
+    live = args.live
+    if live is None and stem:
+        live = f"{stem}.live"
+    off = ("off", "-")
+    return (None if runlog in off else runlog,
+            None if live in off else live)
+
+
+def _aligner_options(args):
+    """The AlignOptions of ``args``, on a device there is; None (the
+    reason logged) when they cannot run."""
+    from .api import resolve_device
     try:
         options = _options_from_args(args)
         resolve_device(options.device)
     except (ValueError, RuntimeError) as e:
         _log(f"error: {e}")
+        return None
+    return options
+
+
+def cmd_mem(args, argv) -> int:
+    from . import obs
+    from .api import Aligner
+    from .dist.api import read_shard
+    from .io.stream import open_batches
+
+    options = _aligner_options(args)
+    if options is None:
         return 2
+    shard = read_shard(args.shard)
+    if shard != (0, 1):
+        _log(f"streaming shard {shard[0]}/{shard[1]}")
     telemetry = None
-    if args.profile:
-        from . import obs
-        telemetry = obs.Telemetry()
+    if args.profile or args.trace:
+        telemetry = obs.Telemetry(trace=bool(args.trace))
     paired = args.reads2 is not None or args.interleaved
     if args.pe_bootstrap and (not paired or not args.chunk_bases):
         _log("error: --pe-bootstrap needs paired input and -K")
@@ -114,12 +177,39 @@ def cmd_mem(args, argv) -> int:
              "(--pe-bootstrap)")
     batches = open_batches(args.reads1, args.reads2,
                            batch_size=args.batch_size,
-                           interleaved=args.interleaved,
+                           interleaved=args.interleaved, shard=shard,
                            chunk_bases=args.chunk_bases)
     out = None if args.output in (None, "-") else args.output
+    runlog_path, live_prefix = _obs_paths(args)
+    runlog = exporter = None
+    if runlog_path:
+        runlog = obs.RunLog(runlog_path)
+        runlog.manifest("repro_torch.cli mem", argv=argv,
+                        engine=options.engine, options=options,
+                        index=aligner.index,
+                        shard=f"{shard[0]}/{shard[1]}",
+                        reads1=args.reads1, reads2=args.reads2,
+                        interleaved=args.interleaved,
+                        batch_size=args.batch_size)
+        _log(f"run {runlog.run_id}: logging events to {runlog_path}")
+    if live_prefix:
+        exporter = obs.LiveExporter(
+            live_prefix, interval=args.live_interval,
+            meta={"run": runlog.run_id if runlog else "",
+                  "engine": options.engine,
+                  "shard": f"{shard[0]}/{shard[1]}"})
+        _log(f"live metrics at {exporter.json_path} + "
+             f"{exporter.prom_path} (every {args.live_interval:g}s)")
     t0 = time.time()
     cl = None if args.no_pg else " ".join(["repro_torch.cli"] + list(argv))
-    summary = aligner.stream_sam(batches, out, cl=cl)
+    try:
+        summary = aligner.stream_sam(batches, out, cl=cl,
+                                     runlog=runlog, export=exporter)
+    except BaseException:
+        if runlog is not None:       # the crash bundle is already logged
+            runlog.end(status="error")
+            runlog.close()
+        raise
     dt = max(time.time() - t0, 1e-9)
     _log(f"aligned {summary['n_reads']} reads "
          f"({summary['n_records']} SAM records, "
@@ -127,20 +217,143 @@ def cmd_mem(args, argv) -> int:
          f"device={aligner.options.device}) "
          f"in {dt:.1f}s ({summary['n_reads'] / dt:.1f} reads/s)")
     if args.profile:
-        from . import obs
         meta = {"engine": aligner.options.engine,
                 "device": aligner.options.device,
                 "reads": summary["n_reads"],
                 "batches": summary["n_batches"],
+                "shard": f"{shard[0]}/{shard[1]}",
                 "paired": paired}
+        if runlog is not None:
+            meta["run"] = runlog.run_id
         obs.write_profile(args.profile, summary["stats"], wall_s=dt,
                           meta=meta)
-        _log(f"wrote profile {args.profile}")
+        _log(f"wrote profile {args.profile} "
+             f"(render it with: repro_torch.cli report {args.profile})")
+    if args.trace:
+        telemetry.tracer.save(args.trace)
+        _log(f"wrote {len(telemetry.tracer)} trace events to {args.trace} "
+             f"(load in Perfetto / chrome://tracing)")
+    if runlog is not None:
+        runlog.end(status="ok", n_reads=summary["n_reads"],
+                   n_records=summary["n_records"],
+                   n_batches=summary["n_batches"], wall_s=round(dt, 6))
+        runlog.close()
+    return 0
+
+
+def cmd_memdist(args, argv) -> int:
+    from .api import Aligner
+    from .dist.run import FatalShardFailure, JobAbandoned, run_job
+
+    options = _aligner_options(args)
+    if options is None:
+        return 2
+    out = None if args.output in (None, "-") else args.output
+    workdir = args.workdir
+    if workdir is None:
+        if out is None:
+            _log("error: memdist needs --workdir when writing to stdout")
+            return 2
+        workdir = str(out) + ".work"
+    aligner = Aligner.from_index(_load_or_build(args.ref), options)
+    runlog = None
+    if args.runlog not in (None, "off", "-"):
+        from . import obs
+        runlog = obs.RunLog(args.runlog)
+        runlog.manifest("repro_torch.cli memdist", argv=argv,
+                        engine=options.engine, options=options,
+                        index=aligner.index, reads1=args.reads1,
+                        reads2=args.reads2, interleaved=args.interleaved,
+                        workers=args.workers, chunk_bases=args.chunk_bases,
+                        workdir=str(workdir))
+        _log(f"run {runlog.run_id}: logging events to {args.runlog}")
+    # the @PG CL records the decomposition, not this invocation's argv:
+    # a resumed run (different argv) must produce identical bytes
+    cl = None if args.no_pg else (
+        f"repro_torch.cli memdist -K {args.chunk_bases} -n {args.workers}")
+    t0 = time.time()
+    try:
+        summary = run_job(
+            aligner, args.reads1, args.reads2, out, workdir=workdir,
+            workers=args.workers, chunk_bases=args.chunk_bases,
+            interleaved=args.interleaved, cl=cl,
+            max_retries=args.max_retries,
+            retry_backoff_s=args.retry_backoff,
+            runlog=runlog, keep_workdir=args.keep_workdir)
+    except JobAbandoned as e:
+        _log(f"error: {e}")
+        if runlog is not None:
+            runlog.end(status="abandoned")
+            runlog.close()
+        return 1
+    except FatalShardFailure as e:
+        _log(f"fatal shard failure: {e}")
+        _log(f"completed work is checkpointed under {workdir}; "
+             f"rerun the same command to resume")
+        if runlog is not None:
+            runlog.end(status="fatal")
+            runlog.close()
+        return 3
+    except BaseException:
+        if runlog is not None:
+            runlog.end(status="error")
+            runlog.close()
+        raise
+    dt = max(time.time() - t0, 1e-9)
+    retries = summary["retries"]
+    _log(f"aligned {summary['n_reads']} reads across "
+         f"{summary['n_shards']} shard(s) ({summary['n_chunks']} chunks, "
+         f"{retries} retr{'y' if retries == 1 else 'ies'}"
+         f", engine={options.engine}, device={options.device}) in "
+         f"{dt:.1f}s ({summary['n_reads'] / dt:.1f} reads/s, merge "
+         f"{summary['merge_s'] * 1e3:.0f}ms)")
+    if runlog is not None:
+        runlog.end(status="ok", n_reads=summary["n_reads"],
+                   n_records=summary["n_records"],
+                   retries=summary["retries"], wall_s=round(dt, 6))
+        runlog.close()
+    return 0
+
+
+def cmd_report(args, argv) -> int:
+    import glob as _glob
+    from . import obs
+    paths: list[str] = []
+    for pat in args.profiles:
+        hits = sorted(_glob.glob(pat))
+        # a non-matching glob falls through as a literal path so the
+        # read error below names exactly what the user typed
+        for p in (hits or [pat]):
+            if p not in paths:
+                paths.append(p)
+    payloads = []
+    for p in paths:
+        try:
+            payloads.append(obs.read_profile(p))
+        except (OSError, ValueError, KeyError) as e:
+            _log(f"error reading {p}: {e}")
+            return 2
+    if len(payloads) == 1 and not args.merge and not args.out:
+        payload = payloads[0]
+        print(obs.render(payload["snapshot"], wall_s=payload.get("wall_s"),
+                         meta=payload.get("meta")))
+        return 0
+    merged = obs.merge_profiles(payloads, paths=paths)
+    print(obs.render(merged["snapshot"], wall_s=merged["wall_s"],
+                     meta=merged["meta"]))
+    if len(payloads) > 1:
+        print()
+        print(obs.shard_wall_table(merged["shards"]))
+    if args.out:
+        obs.write_merged_profile(args.out, merged)
+        _log(f"wrote merged profile {args.out} "
+             f"({len(payloads)} part(s))")
     return 0
 
 
 def _add_align_flags(p) -> None:
-    """Device selection, fixed-base chunking, @PG suppression, and the bwa
+    """Flags shared by every aligning subcommand (mem, memdist): device
+    selection, fixed-base chunking, @PG suppression, and the bwa
     alignment flags of ``repro_torch.options.BWA_FLAGS``."""
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda: the hand-written kernels on the card (an "
@@ -154,7 +367,8 @@ def _add_align_flags(p) -> None:
     p.add_argument("--pe-bootstrap", action="store_true",
                    help="estimate PE insert-size stats ONCE on the "
                         "leading chunk and freeze them for the whole run "
-                        "(needs -K and paired input)")
+                        "(needs -K and paired input; memdist always does "
+                        "this)")
     p.add_argument("--no-pg", action="store_true",
                    help="omit the @PG header line (whose CL differs per "
                         "invocation) — for byte-comparing runs")
@@ -224,11 +438,86 @@ def build_parser() -> argparse.ArgumentParser:
                          "stats are per-batch, as in bwa (default 512)")
     mm.add_argument("-p", "--interleaved", action="store_true",
                     help="reads1 is interleaved R1/R2 (bwa mem -p)")
+    mm.add_argument("--shard", default=None, metavar="i/n",
+                    help="stream only shard i of n (default: this "
+                         "process's torch.distributed rank, else "
+                         "everything)")
     _add_align_flags(mm)
     mm.add_argument("--profile", default=None, metavar="JSON",
                     help="enable telemetry and write the kernel-breakdown "
-                         "profile here")
+                         "profile here (render with `repro_torch.cli "
+                         "report`)")
+    mm.add_argument("--trace", default=None, metavar="JSON",
+                    help="also collect Chrome trace events (Perfetto / "
+                         "chrome://tracing) and write them here")
+    mm.add_argument("--runlog", default=None, metavar="JSONL",
+                    help="structured run-log path: one JSON event per "
+                         "line (manifest, per-batch progress, warnings, "
+                         "crash bundle). Defaults to <profile>.runlog"
+                         ".jsonl when --profile is set; 'off' disables")
+    mm.add_argument("--live", default=None, metavar="PREFIX",
+                    help="live metrics export: atomically rewrite "
+                         "PREFIX.json (snapshot) + PREFIX.prom "
+                         "(Prometheus textfile) during the run. Defaults "
+                         "to <profile-stem>.live when --profile is set; "
+                         "'off' disables")
+    mm.add_argument("--live-interval", type=float, default=1.0,
+                    metavar="SECS",
+                    help="live-export rewrite interval [1.0]")
     mm.set_defaults(fn=cmd_mem)
+
+    md = sub.add_parser(
+        "memdist",
+        help="resilient multi-shard mem: checkpointed shard execution, "
+             "auto-retry, deterministic SAM merge")
+    md.add_argument("ref", help="index bundle prefix (or FASTA to build "
+                                "in-memory)")
+    md.add_argument("reads1", help="FASTQ (plain or .gz)")
+    md.add_argument("reads2", nargs="?", default=None,
+                    help="mate FASTQ for split paired-end input")
+    md.add_argument("-o", "--output", default=None,
+                    help="merged SAM path (default: stdout; byte-identical "
+                         "to `mem -K ... --pe-bootstrap` on the same input)")
+    md.add_argument("-p", "--interleaved", action="store_true",
+                    help="reads1 is interleaved R1/R2 (bwa mem -p)")
+    md.add_argument("-n", "--workers", type=int, default=3, metavar="N",
+                    help="worker shards; output bytes do NOT depend on "
+                         "this (fixed-base chunking) [3]")
+    md.add_argument("--workdir", default=None, metavar="DIR",
+                    help="durable job scratch (plan, per-shard SAMs + "
+                         "checkpoints); rerunning with the same workdir "
+                         "RESUMES [<output>.work]")
+    md.add_argument("--max-retries", type=int, default=2, metavar="N",
+                    help="per-shard retry cap before the job is "
+                         "abandoned [2]")
+    md.add_argument("--retry-backoff", type=float, default=0.05,
+                    metavar="SECS",
+                    help="base of the exponential retry backoff [0.05]")
+    md.add_argument("--keep-workdir", action="store_true",
+                    help="keep the workdir after a successful merge")
+    md.add_argument("--runlog", default=None, metavar="JSONL",
+                    help="structured run-log path (job_plan, shard_batch, "
+                         "shard_retry/shard_abandoned, merge events); "
+                         "'off' disables")
+    _add_align_flags(md)
+    md.set_defaults(fn=cmd_memdist, chunk_bases=100_000)
+
+    rp = sub.add_parser("report", help="pretty-print saved --profile "
+                                       "JSON(s); multiple files (or globs) "
+                                       "merge into one cross-shard report")
+    rp.add_argument("profiles", nargs="+", metavar="profile",
+                    help="profile JSON(s) written by mem --profile (of "
+                         "either package); multiple paths or globs (e.g. "
+                         "'shard*.json') are Snapshot-merged into one "
+                         "breakdown plus a per-shard wall-time/straggler "
+                         "table")
+    rp.add_argument("--merge", action="store_true",
+                    help="force merged rendering even for one file "
+                         "(merging is automatic for several)")
+    rp.add_argument("-o", "--out", default=None, metavar="JSON",
+                    help="also write the merged profile (re-loadable by "
+                         "report / read_profile) here")
+    rp.set_defaults(fn=cmd_report)
     return ap
 
 

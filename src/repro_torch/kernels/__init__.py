@@ -11,16 +11,19 @@ version for a tensor on the CPU and launches its kernel for a tensor on
 a CUDA device; any other device raises.
 """
 
+from .build import LAUNCH_LOCK
 from .bsw import ops as _bsw_ops
 from .fmocc import ops as _fmocc_ops
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launch_counts``, by kernel."""
-    return {**_fmocc_ops.LAUNCHES, **_bsw_ops.LAUNCHES}
+    with LAUNCH_LOCK:
+        return {**_fmocc_ops.LAUNCHES, **_bsw_ops.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for d in (_fmocc_ops.LAUNCHES, _bsw_ops.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    with LAUNCH_LOCK:
+        for d in (_fmocc_ops.LAUNCHES, _bsw_ops.LAUNCHES):
+            for k in d:
+                d[k] = 0

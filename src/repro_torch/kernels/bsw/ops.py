@@ -90,7 +90,7 @@ def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
         p.e_del, p.o_ins, p.e_ins, p.zdrop, out.data_ptr(), ctas, warps,
         smem // warps, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "bsw")
-    LAUNCHES["bsw"] += 1
+    build.count_launch(LAUNCHES, "bsw")
     return out
 
 

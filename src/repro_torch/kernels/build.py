@@ -41,6 +41,9 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+#: guards every kernel's launch counter: shards on worker threads launch
+#: at once, and ``launches[name] += 1`` is a read-modify-write
+LAUNCH_LOCK = threading.Lock()
 #: nvcc's output of the last build (the ptxas resource report)
 build_log = ""
 
@@ -113,6 +116,12 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Add one to ``launches[name]`` under ``LAUNCH_LOCK``."""
+    with LAUNCH_LOCK:
+        launches[name] += 1
 
 
 def check(err: int, name: str) -> None:

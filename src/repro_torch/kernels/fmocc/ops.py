@@ -127,7 +127,7 @@ def _ext_round_cuda(fm: FMArrays, which: str, k, l, s, c, layout: str,
         fm.primary.data_ptr(), out.data_ptr(), n, int(which == "fwd"), block,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
-    LAUNCHES[name] += 1
+    build.count_launch(LAUNCHES, name)
     return out
 
 
