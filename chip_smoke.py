@@ -66,8 +66,19 @@ Phases (each prints one line, any failure raises and exits non-zero):
    the checkpoint, and SAM byte-identical to ``mem -K 9696``;
 11. memdist on pairs: the first 128 pairs of phase 7 through ``memdist
    -K 12928 -n 2 --pe-bootstrap`` (2 chunks), byte-identical to ``mem -K
-   12928 --pe-bootstrap``.
-Phases 5, 7 and 9-11 each set the launch counters to 0 just before their
+   12928 --pe-bootstrap``;
+12. serve: an in-process ``repro_torch.serve.AlignmentServer`` on the card
+   over phase 3's index (``max_batch_reads=512``, insert-size stats frozen
+   from phase 4's rescue sample).  Paused, it queues 8 concurrent TCP
+   clients of 16 reads each (phase 5's first 128 reads, one request with
+   the header); resumed, it must run them as ONE batch of width 8, and
+   each response must be phase 5's lines of its reads.  Then 4 clients of
+   8 pairs (phase 7's first 32 pairs) run as one batch of width 4, each
+   response equal to an offline ``Aligner(pe_stats=...).align_pairs`` of
+   the 32 pairs on the card.  Any error frame or ``crash`` event fails
+   the phase; it prints each batch's wall and pad share and the requests'
+   waits from the run log.
+Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
 launched.
 
@@ -88,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -108,11 +120,11 @@ from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
 from repro_torch.core.sal import seeds_from_intervals  # noqa: E402
 from repro_torch.core import smem as smem_mod  # noqa: E402
 from repro_torch.core.smem import collect_smems_batch  # noqa: E402
-from repro_torch.data import (make_reference, simulate_pairs,  # noqa: E402
-                              simulate_reads, write_fasta, write_fastq,
-                              write_fastq_pair)
+from repro_torch.data import (decode, make_reference,  # noqa: E402
+                              simulate_pairs, simulate_reads, write_fasta,
+                              write_fastq, write_fastq_pair)
 from repro_torch.io.store import load_index  # noqa: E402
-from repro_torch.io.stream import open_batches  # noqa: E402
+from repro_torch.io.stream import _pack_pe, open_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bsw.ops import (bsw_call,  # noqa: E402
                                           bsw_extend_kernel, launch_geometry)
@@ -124,6 +136,8 @@ from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
 from repro_torch.kernels.fmocc.ops import (DIRECTIONS, LAYOUTS,  # noqa: E402
                                            ext_round)
 from repro_torch.kernels.fmocc.ref import ext_round_ref  # noqa: E402
+from repro_torch.options import AlignOptions  # noqa: E402
+from repro_torch.serve import AlignmentServer, ServeClient  # noqa: E402
 
 REF_LEN = 4_641_652        # E. coli K-12 MG1655 (NC_000913.3)
 N_READS = 2048             # one batch, ~1/50 of bwa's 10-Mbase -K chunk
@@ -138,6 +152,11 @@ N_MEMDIST_READS = 384      # phase 10
 MEMDIST_K = 96 * READ_LEN  # 9,696 bases: 4 chunks of 96 reads
 N_MEMDIST_PAIRS = 128      # phase 11: the first pairs of phase 7
 MEMDIST_PE_K = 64 * 2 * READ_LEN   # 12,928 bases: 2 chunks of 64 pairs
+N_SERVE_CLIENTS = 8        # phase 12: 8 clients x 16 reads = 128 reads
+N_SERVE_READS = 16
+N_SERVE_PE_CLIENTS = 4     # then 4 clients x 8 pairs = 32 pairs
+N_SERVE_PAIRS = 8
+SERVE_BATCH_READS = 512
 PAIR_SIM = dict(insert_mean=300, insert_std=30, burst_frac=0.15)
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
@@ -1017,6 +1036,140 @@ def memdist_pe(fa, tmp: pathlib.Path, r1, r2) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------
+# phase 12: the alignment server
+# ---------------------------------------------------------------------
+
+def serve_round(srv, requests: list, call) -> list:
+    """Hold the scheduler, send each request from its own client thread,
+    wait until every one is queued (the scheduler holds at most the first
+    outside the queue), resume, and return the results in order; any
+    error frame or failed thread raises."""
+    srv.pause()
+    before = srv.metrics.snapshot().get("serve_requests", 0)
+    results, errors = [None] * len(requests), []
+
+    def client(i):
+        try:
+            with ServeClient.connect(*srv.address) as c:
+                results[i] = call(c, i, requests[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    deadline = time.time() + 60
+    while (srv.metrics.snapshot().get("serve_requests", 0) - before
+           < len(requests) or len(srv.queue) < len(requests) - 1):
+        if time.time() > deadline or errors:
+            srv.resume()
+            raise AssertionError(f"serve: requests not queued ({errors})")
+        time.sleep(0.01)
+    srv.resume()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: client errors {errors}")
+    return results
+
+
+def lines_of(lines: list[str], names) -> list[str]:
+    keep = set(names)
+    return [ln for ln in lines if ln.split("\t", 1)[0] in keep]
+
+
+def serve_phase(idx, dev, tmp: pathlib.Path, reads, sam: pathlib.Path,
+                r1, r2, pes) -> dict:
+    """Phase 12: the alignment server on the card, SE then PE, with the
+    launch counters set to 0 just before and read just after its
+    requests; the PE responses are then held against an offline run."""
+    body = sam_body(sam)
+    header = [ln for ln in sam.read_text().splitlines()
+              if ln.startswith("@")]
+    rl = tmp / "serve.runlog.jsonl"
+    runlog = obs.RunLog(rl)
+    runlog.manifest("chip_smoke serve", engine="cuda")
+    se_reqs = [[(f"read{r}", decode(reads[r]))
+                for r in range(i * N_SERVE_READS, (i + 1) * N_SERVE_READS)]
+               for i in range(N_SERVE_CLIENTS)]
+    pe_reqs = [[(f"pair{p}", decode(r1[p]), decode(r2[p]))
+                for p in range(i * N_SERVE_PAIRS, (i + 1) * N_SERVE_PAIRS)]
+               for i in range(N_SERVE_PE_CLIENTS)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = AlignmentServer(idx, AlignOptions(device=str(dev)),
+                          max_batch_reads=SERVE_BATCH_READS, pe_stats=pes,
+                          runlog=runlog)
+    srv.start()
+    try:
+        se_res = serve_round(srv, se_reqs, lambda c, i, items: c.align(
+            items, header=i == 0, request_id=f"se{i}"))
+        se_batches = srv.metrics.snapshot().get("serve_batches", 0)
+        pe_res = serve_round(srv, pe_reqs, lambda c, i, items: c.align_pairs(
+            items, request_id=f"pe{i}"))
+        pe_batches = srv.metrics.snapshot().get("serve_batches", 0)
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require_path_launches(launches, 0, "serve")
+    if (se_batches, pe_batches) != (1, 2):
+        raise AssertionError(f"serve ran {se_batches} SE and "
+                             f"{pe_batches - se_batches} PE batches, not 1 "
+                             f"and 1")
+    if se_res[0].header != header:
+        raise AssertionError("the served header differs from mem's")
+    for items, res in zip(se_reqs, se_res):
+        if res.sam != lines_of(body, (n for n, _ in items)):
+            raise AssertionError(f"served SAM of {items[0][0]}.. differs "
+                                 f"from mem's lines of those reads")
+    pairs = [it for items in pe_reqs for it in items]
+    t1 = time.perf_counter()
+    offline = Aligner(idx, device=dev, pe_stats=pes).align_pairs(
+        _pack_pe([n for n, _, _ in pairs], [a for _, a, _ in pairs],
+                 [b for _, _, b in pairs])).sam()
+    offline_s = time.perf_counter() - t1
+    for items, res in zip(pe_reqs, pe_res):
+        if res.sam != lines_of(offline, (n for n, _, _ in items)):
+            raise AssertionError(f"served SAM of {items[0][0]}.. differs "
+                                 f"from the offline frozen-stats run")
+    events = obs.read_runlog(rl)
+    kinds = collections.Counter(e["event"] for e in events)
+    if kinds["crash"] or kinds["request_error"]:
+        raise AssertionError(f"serve logged {dict(kinds)}")
+    batches = [e for e in events if e["event"] == "batch_coalesced"]
+    if [(b["op"], b["requests"]) for b in batches] != [
+            ("align", N_SERVE_CLIENTS), ("align_pairs", N_SERVE_PE_CLIENTS)]:
+        raise AssertionError(f"serve batches {batches}")
+    waits = {op: sorted(e["wait_s"] for e in events
+                        if e["event"] == "request_done" and e["id"] in ids)
+             for op, ids in (("se", {r.id for r in se_res}),
+                             ("pe", {r.id for r in pe_res}))}
+    if [len(w) for w in waits.values()] != [N_SERVE_CLIENTS,
+                                           N_SERVE_PE_CLIENTS]:
+        raise AssertionError(f"serve: request_done events {dict(kinds)}")
+    phase("serve", reads=N_SERVE_CLIENTS * N_SERVE_READS,
+          pairs=len(pairs), wall_s=f"{wall:.2f}",
+          first_batch_s=batches[0]["batch_s"],
+          other_batches_s=",".join(str(b["batch_s"]) for b in batches[1:]),
+          widths=",".join(str(b["requests"]) for b in batches),
+          pad_frac=",".join(str(b["pad_frac"]) for b in batches),
+          se_wait_p50_s=statistics.median(waits["se"]),
+          se_wait_max_s=waits["se"][-1],
+          pe_wait_p50_s=statistics.median(waits["pe"]),
+          pe_wait_max_s=waits["pe"][-1],
+          offline_pe_s=f"{offline_s:.2f}",
+          identical_to_mem=True, identical_to_offline_pe=True,
+          events=json.dumps(dict(kinds), separators=(",", ":")),
+          launches=json.dumps(launches, separators=(",", ":")),
+          card=smi("name,power.limit").replace(" ", "_"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1173,6 +1326,10 @@ def main() -> int:
         launches_memdist_pe = memdist_pe(fa, tmp, pe_run["r1"],
                                          pe_run["r2"])
 
+        # 12. the alignment server: concurrent clients, one batch each
+        launches_serve = serve_phase(idx, dev, tmp, reads, sam, pe_run["r1"],
+                                     pe_run["r2"], pes_r)
+
     report = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
@@ -1182,6 +1339,7 @@ def main() -> int:
                        "launches_mem_shard": launches_shard[name],
                        "launches_memdist": launches_memdist[name],
                        "launches_memdist_pe": launches_memdist_pe[name],
+                       "launches_serve": launches_serve[name],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": None,

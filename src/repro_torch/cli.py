@@ -15,6 +15,11 @@
                                    [--device cuda|cpu] [--workdir DIR]
                                    [--max-retries N] [--runlog run.jsonl]
                                    [--no-pg] [...mem alignment flags]
+    python -m repro_torch.cli serve ref.fa [--host H] [--port P]
+                                   [--device cuda|cpu] [--max-batch-reads N]
+                                   [--max-queue N] [--max-read-len BP]
+                                   [--ready-file PATH] [--runlog run.jsonl]
+                                   [--live PREFIX] [...mem alignment flags]
     python -m repro_torch.cli report prof.json              # one profile
     python -m repro_torch.cli report --merge 'shard*.json'  # cross-shard
 
@@ -44,6 +49,13 @@ once from the leading chunk, and the per-shard SAMs merge in shard order
 (compare with ``--no-pg``).  Fault injection for drills:
 ``REPRO_FT_INJECT="shard:chunk[:fail|fatal]"``.  A workdir either
 package leaves behind resumes under the other.
+
+``serve`` is the persistent alignment server (``repro_torch.serve``):
+the index is loaded once, queued client requests of one option cohort are
+coalesced into full-width batches on ``--device``, and each request's
+SAM comes back byte-identical to an offline ``mem`` of its reads.  It
+speaks the reference's wire protocol, so ``repro.serve.ServeClient``
+talks to it.  SIGINT drains the queued requests and exits 0.
 
 ``--profile out.json`` turns on telemetry and writes the paper-style
 kernel-breakdown profile; ``--trace out.trace.json`` also collects
@@ -315,6 +327,54 @@ def cmd_memdist(args, argv) -> int:
     return 0
 
 
+def cmd_serve(args, argv) -> int:
+    from .serve import AlignmentServer
+
+    options = _aligner_options(args)
+    if options is None:
+        return 2
+    index = _load_or_build(args.ref)
+    runlog = exporter = None
+    if args.runlog not in (None, "off", "-"):
+        from . import obs
+        runlog = obs.RunLog(args.runlog)
+        runlog.manifest("repro_torch.cli serve", argv=argv,
+                        engine=options.engine, options=options, index=index)
+        _log(f"run {runlog.run_id}: logging events to {args.runlog}")
+    if args.live not in (None, "off", "-"):
+        from . import obs
+        exporter = obs.LiveExporter(
+            args.live, interval=args.live_interval,
+            meta={"run": runlog.run_id if runlog else "",
+                  "engine": options.engine,
+                  "source": "repro_torch.cli serve"})
+        _log(f"live metrics at {exporter.json_path} + {exporter.prom_path} "
+             f"(every {args.live_interval:g}s)")
+    server = AlignmentServer(index, options,
+                             host=args.host, port=args.port,
+                             max_batch_reads=args.max_batch_reads,
+                             max_queue=args.max_queue,
+                             max_read_len=args.max_read_len,
+                             runlog=runlog, exporter=exporter)
+    host, port = server.start()
+    _log(f"serving on {host}:{port} (engine={options.engine}, "
+         f"device={server.options.device}, "
+         f"max_batch_reads={args.max_batch_reads}, "
+         f"max_queue={args.max_queue})")
+    if args.ready_file:
+        with open(args.ready_file, "w") as f:
+            f.write(f"{host} {port}\n")
+        _log(f"wrote address to {args.ready_file}")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        _log("shutting down (draining queued requests)")
+    finally:
+        server.shutdown(drain=True)
+    return 0
+
+
 def cmd_report(args, argv) -> int:
     import glob as _glob
     from . import obs
@@ -352,8 +412,8 @@ def cmd_report(args, argv) -> int:
 
 
 def _add_align_flags(p) -> None:
-    """Flags shared by every aligning subcommand (mem, memdist): device
-    selection, fixed-base chunking, @PG suppression, and the bwa
+    """Flags shared by every aligning subcommand (mem, memdist, serve):
+    device selection, fixed-base chunking, @PG suppression, and the bwa
     alignment flags of ``repro_torch.options.BWA_FLAGS``."""
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda: the hand-written kernels on the card (an "
@@ -501,6 +561,49 @@ def build_parser() -> argparse.ArgumentParser:
                          "'off' disables")
     _add_align_flags(md)
     md.set_defaults(fn=cmd_memdist, chunk_bases=100_000)
+
+    sv = sub.add_parser(
+        "serve",
+        help="persistent alignment server: index loaded once, queued "
+             "client requests coalesced into full-width engine batches "
+             "(see repro_torch.serve)")
+    sv.add_argument("ref", help="index bundle prefix (or FASTA to build "
+                                "in-memory)")
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address [127.0.0.1]")
+    sv.add_argument("--port", type=int, default=0,
+                    help="TCP port; 0 picks a free one (printed, and "
+                         "written to --ready-file) [0]")
+    sv.add_argument("--max-batch-reads", type=int, default=512,
+                    metavar="N",
+                    help="read budget of one coalesced engine batch "
+                         "(throughput knob: larger batches saturate the "
+                         "kernels, at some per-request latency) [512]")
+    sv.add_argument("--max-queue", type=int, default=64, metavar="N",
+                    help="bounded request queue; a full queue returns "
+                         "structured 'overloaded' errors (backpressure) "
+                         "[64]")
+    sv.add_argument("--max-read-len", type=int, default=4096,
+                    metavar="BP",
+                    help="reject reads above BP with 'read_too_long' "
+                         "(one huge read would poison its cohort's "
+                         "padding) [4096]")
+    sv.add_argument("--ready-file", default=None, metavar="PATH",
+                    help="write 'host port' here once listening (for "
+                         "scripts that need the picked port)")
+    sv.add_argument("--runlog", default=None, metavar="JSONL",
+                    help="structured run-log path (request, "
+                         "batch_coalesced, request_done/request_error "
+                         "events); 'off' disables")
+    sv.add_argument("--live", default=None, metavar="PREFIX",
+                    help="live metrics export: atomically rewrite "
+                         "PREFIX.json + PREFIX.prom (Prometheus "
+                         "textfile) while serving; 'off' disables")
+    sv.add_argument("--live-interval", type=float, default=1.0,
+                    metavar="SECS",
+                    help="live-export rewrite interval [1.0]")
+    _add_align_flags(sv)
+    sv.set_defaults(fn=cmd_serve)
 
     rp = sub.add_parser("report", help="pretty-print saved --profile "
                                        "JSON(s); multiple files (or globs) "

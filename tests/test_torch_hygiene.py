@@ -3,8 +3,9 @@
 * importing every ``repro_torch`` module and ``chip_smoke.py`` loads no
   JAX and nothing of the ``repro`` package;
 * without a CUDA device the entry points (``Aligner``, ``align_pairs``,
-  ``cli mem``, single-end and paired) raise or exit non-zero at their
-  default device instead of running on the CPU;
+  ``cli mem``, single-end and paired, ``serve.AlignmentServer`` and ``cli
+  serve``) raise or exit non-zero at their default device instead of
+  running on the CPU;
 * a kernel wrapper given a tensor on any device other than the CPU or a
   CUDA device raises instead of running its plain version.
 """
@@ -122,6 +123,27 @@ def test_cli_mem_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
     assert not out.exists()
     assert cli.main(["mem", fa, fq, "-o", str(out), "--device", "cpu"]) == 0
     assert out.exists()
+
+
+def test_server_without_cuda_raises_before_binding(no_cuda, tiny):
+    from repro_torch.options import AlignOptions
+    from repro_torch.serve import AlignmentServer
+    idx = tiny[0]
+    # the constructor raises: there is no server to start(), so no socket
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AlignmentServer(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AlignmentServer(idx, AlignOptions(device="cuda:0"), port=0)
+    srv = AlignmentServer(idx, AlignOptions(device="cpu"))
+    assert srv.options.device == "cpu" and srv._sock is None
+
+
+def test_cli_serve_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
+    _, fa, _, d = tiny[:4]
+    ready = d / "serve.ready"
+    assert cli.main(["serve", fa, "--ready-file", str(ready)]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not ready.exists()
 
 
 def test_wrappers_refuse_meta_tensors(tiny):

@@ -587,20 +587,24 @@ def test_engine_override_per_call(world, tmp_path):
         return run_pe_cuda(*a, **k)
 
     api.register_engine("counting", se, pe, replace=True)
-    al = cpu_aligner(idx)
-    want = al.align(reads).sam()
-    assert al.align(reads, engine="counting").sam() == want
-    assert al.align_pairs(reads[:4], reads[4:8], engine="counting").paired
-    al.estimate_pe_stats(reads[:4], reads[4:8], engine="counting")
-    out = tmp_path / "o.sam"
-    al.stream_sam(open_batches(fq, batch_size=8), str(out),
-                  engine="counting")
-    assert calls == ["se", "pe", "se", "se", "se"]
-    for call in (lambda: al.align(reads, engine="nope"),
-                 lambda: al.align_pairs(reads[:2], reads[2:4],
-                                        engine="nope"),
-                 lambda: al.estimate_pe_stats(reads[:2], reads[2:4],
-                                              engine="nope")):
-        with pytest.raises(ValueError, match="unknown engine 'nope'"):
-            call()
-    assert calls == ["se", "pe", "se", "se", "se"]
+    try:
+        al = cpu_aligner(idx)
+        want = al.align(reads).sam()
+        assert al.align(reads, engine="counting").sam() == want
+        assert al.align_pairs(reads[:4], reads[4:8], engine="counting").paired
+        al.estimate_pe_stats(reads[:4], reads[4:8], engine="counting")
+        out = tmp_path / "o.sam"
+        al.stream_sam(open_batches(fq, batch_size=8), str(out),
+                      engine="counting")
+        assert calls == ["se", "pe", "se", "se", "se"]
+        for call in (lambda: al.align(reads, engine="nope"),
+                     lambda: al.align_pairs(reads[:2], reads[2:4],
+                                            engine="nope"),
+                     lambda: al.estimate_pe_stats(reads[:2], reads[2:4],
+                                                  engine="nope")):
+            with pytest.raises(ValueError, match="unknown engine 'nope'"):
+                call()
+        assert calls == ["se", "pe", "se", "se", "se"]
+    finally:
+        # keep the process-global registry pristine for later tests
+        del api._ENGINES["counting"]
