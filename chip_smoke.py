@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives single-end and paired-end ``mem``, sharded ``mem`` and ``memdist``
-on the card through the port's own entry points and checks every
-hand-written kernel against its plain PyTorch version.
+Drives single-end and paired-end ``mem``, sharded ``mem``, ``memdist``,
+the alignment server and the LM serving path on the card through the
+port's own entry points and checks every hand-written kernel against its
+plain PyTorch version.
 Phases (each prints one line, any failure raises and exits non-zero):
 
 1. environment: Python, torch, CUDA and nvcc versions; the card's name and
@@ -77,13 +78,39 @@ Phases (each prints one line, any failure raises and exits non-zero):
    response equal to an offline ``Aligner(pe_stats=...).align_pairs`` of
    the 32 pairs on the card.  Any error frame or ``crash`` event fails
    the phase; it prints each batch's wall and pad share and the requests'
-   waits from the run log.
+   waits from the run log;
+13. LM serve: Qwen1.5-0.5B at full width in bf16 (24 layers, d_model
+   1024, vocab 151,936), its params drawn on the card from
+   ``torch.Generator("cuda").manual_seed(0)``, serves the 8 prompts of
+   ``repro_torch.launch.serve``'s main (seed 0, 4-39 tokens) with
+   ``max_new`` 16 through ``serve_batch``, twice: every output 16 ids in
+   [0, vocab), both runs the same tokens.  It prints the parameter count
+   and GB, the init time, each run's wall, the decode steps, generated
+   tokens/s, the lane efficiency and ``max_memory_allocated``, then, over
+   8 more decode steps under torch.profiler, the card's busy share and
+   the host-to-device copies and stream synchronisations a step; it
+   asserts that TF32 matmuls are off;
+14. LM exact, float32: (a) Qwen1.5-0.5B at full width, teacher-forced
+   ``decode_step`` over B=2, S=64 against ``forward`` with 32-row blocks
+   (one block fully masked), max |diff| <= 1e-3; the same params copied
+   to the CPU and ``serve_batch`` of the first 2 prompts (``max_new`` 8)
+   on both devices: the tokens agree at every step whose CPU top-2 margin
+   is > 1e-3 (a step under it is printed, not failed) and every step's
+   logits within 1e-3; (b) every arch at its smoke config: ``forward``,
+   ``loss_fn`` and 16 decode steps on the card against the CPU within
+   1e-4, and decode against forward on the card for the 5 archs of
+   ``tests/test_models.py``'s test; (c) mamba2-130m at full width, B=1,
+   S=256 (two SSD chunks): decode against forward within 1e-3.  It prints
+   each check's max error by arch.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
-launched.
+launched.  The LM path reaches none of the three kernels: phases 13-14
+set the counters to 0 before they start and fail if any kernel was
+launched by the end of either.
 
-The line before the last is one JSON object with every kernel's launches,
-error, times and bound; the last line is ``{"ok": true, "device": ...}``.
+The line before the last is one JSON object with every kernel's launches
+(from phases 4-12; the LM phases launch none), error, times and bound;
+the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -91,6 +118,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -110,6 +138,9 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import cli, kernels, obs  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch, smoke_config  # noqa: E402
+from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.api import Aligner  # noqa: E402
 from repro_torch.core.bsw import BSWParams, pack_tasks  # noqa: E402
 from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
@@ -158,6 +189,21 @@ N_SERVE_PE_CLIENTS = 4     # then 4 clients x 8 pairs = 32 pairs
 N_SERVE_PAIRS = 8
 SERVE_BATCH_READS = 512
 PAIR_SIM = dict(insert_mean=300, insert_std=30, burst_frac=0.15)
+LM_ARCH = "qwen1.5-0.5b"   # phases 13-14: launch/serve.py's default arch
+LM_PROMPTS = 8             # launch/serve.py's main: 8 prompts of 4-39 tokens
+LM_MAX_NEW = 16
+LM_PROFILED_STEPS = 8      # decode steps under the profiler (phase 13)
+LM_EXACT_B, LM_EXACT_S, LM_EXACT_BLOCK = 2, 64, 32   # 2x2 flash blocks
+LM_CPU_PROMPTS, LM_CPU_MAX_NEW = 2, 8
+LM_TOL = 1e-3              # float32 at full width: logits, max |diff|
+LM_SMOKE_TOL = 1e-4        # float32 at the smoke configs
+LM_MARGIN = 1e-3           # a CPU top-2 margin under this may flip a token
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_BLOCK = 2, 16, 8
+#: the archs of tests/test_models.py's decode-against-forward test (the
+#: MoE archs drop other tokens at a decode step's capacity)
+LM_DECODE_ARCHS = ("qwen1.5-0.5b", "internlm2-1.8b", "mamba2-130m",
+                   "zamba2-7b", "musicgen-large")
+LM_SSM_ARCH, LM_SSM_S = "mamba2-130m", 256           # two SSD chunks of 128
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
 L2_FLUSH_BYTES = 256 << 20
@@ -1170,6 +1216,287 @@ def serve_phase(idx, dev, tmp: pathlib.Path, reads, sam: pathlib.Path,
     return launches
 
 
+# ---------------------------------------------------------------------
+# phases 13-14: the LM serving path
+# ---------------------------------------------------------------------
+
+def lm_prompts(vocab: int, n: int) -> list:
+    """The prompts of ``repro_torch.launch.serve``'s main (seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=rng.integers(4, 40))
+            .astype(np.int32) for _ in range(n)]
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def max_diff(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def require_no_launches(what: str) -> None:
+    """The LM path reaches none of the BWA-MEM kernels."""
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"{what} launched BWA-MEM kernels: {launched}")
+
+
+def require_tf32_off() -> bool:
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls are not exact float32 (TF32)")
+    return tf32
+
+
+def profiled_decode_steps(cfg, params, B: int, smax: int, dev) -> dict:
+    """LM_PROFILED_STEPS greedy decode steps of a served batch's geometry
+    under the profiler (after one unprofiled step): the card's busy
+    share, host-to-device copies and stream synchronisations a step, and
+    the largest device items.  A served run holds ~100k PyTorch calls,
+    whose trace takes the profiler about a minute to process; a few steps
+    show the same per-step work."""
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, B, smax, device=dev)
+        cur = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+        def step(pos, cur):
+            logits, _ = lm.decode_step(params, cfg, cache, {"tokens": cur},
+                                       pos)
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        cur = step(0, cur)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pos in range(1, 1 + LM_PROFILED_STEPS):
+                cur = step(pos, cur)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = {e.key: e.self_device_time_total for e in events
+              if e.self_device_time_total > 0}
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    n = LM_PROFILED_STEPS
+    return {"profiled_steps": n,
+            "profiled_ms_per_step": f"{wall / n * 1e3:.3f}",
+            "device_ms_per_step": f"{sum(dev_us.values()) / 1e3 / n:.3f}",
+            "device_busy": f"{sum(dev_us.values()) / 1e6 / wall:.4f}",
+            "h2d_per_step": sum(e.count for e in events
+                                if "HtoD" in e.key) / n,
+            "syncs_per_step": sum(e.count for e in events
+                                  if e.key == "cudaStreamSynchronize") / n,
+            "top_ms": json.dumps({k[:40]: round(v / 1e3, 3) for k, v in top},
+                                 separators=(",", ":"))}
+
+
+def lm_serve_phase(dev) -> None:
+    """Phase 13: Qwen1.5-0.5B at full width in bf16, initialised on the
+    card, serves launch/serve.py's 8 prompts twice (16 new tokens)."""
+    t_phase = time.perf_counter()
+    tf32 = require_tf32_off()
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    prompts = lm_prompts(cfg.vocab, LM_PROMPTS)
+    kernels.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs, stats = serve_batch(cfg, params, prompts, LM_MAX_NEW)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, outs))
+    steps = max(len(p) for p in prompts) + LM_MAX_NEW - 1
+    prof = profiled_decode_steps(cfg, params, len(prompts), steps + 1, dev)
+    require_no_launches("[lm_serve]")
+    for o in runs[0][1]:
+        if o.shape != (LM_MAX_NEW,) or not ((0 <= o) & (o < cfg.vocab)).all():
+            raise AssertionError(f"lm_serve: bad output {o}")
+    if any(not np.array_equal(a, b) for a, b in zip(runs[0][1], runs[1][1])):
+        raise AssertionError("lm_serve: the two runs gave other tokens")
+    (cold, _), (warm, _) = runs
+    gen = LM_PROMPTS * LM_MAX_NEW
+    phase("lm_serve", arch=LM_ARCH, dtype=cfg.dtype, params=n_params,
+          param_count=cfg.param_count(), gb=f"{nbytes / 1e9:.3f}",
+          init_s=f"{init_s:.3f}", prompts=LM_PROMPTS, max_new=LM_MAX_NEW,
+          prompt_lens=",".join(str(len(p)) for p in prompts),
+          decode_steps=steps, first_s=f"{cold:.3f}", warm_s=f"{warm:.3f}",
+          warm_ms_per_step=f"{warm / steps * 1e3:.3f}",
+          tokens_per_s_warm=f"{gen / warm:.1f}",
+          tokens_per_s_first=f"{gen / cold:.1f}",
+          lane_efficiency=f"{stats['lane_efficiency']:.4f}",
+          max_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          identical_runs=True, allow_tf32=tf32, **prof,
+          first_output=",".join(map(str, runs[0][1][0][:8])),
+          wall_s=f"{time.perf_counter() - t_phase:.2f}",
+          card=smi("name,power.limit").replace(" ", "_"))
+
+
+def lm_batch(cfg, B: int, S: int, rng) -> dict:
+    if cfg.input_kind == "embeds":
+        ar = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+        return {"embeds": rng.normal(0, 0.1, size=(B, S, cfg.d_model))
+                .astype(np.float32),
+                "positions": np.stack([ar, ar, ar]),
+                "labels": rng.integers(0, cfg.vocab, size=(B, S))}
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    toks = rng.integers(0, cfg.vocab, size=shape)
+    return {"tokens": toks, "labels": toks}
+
+
+def lm_run(params, cfg, batch: dict, dev, block: int) -> tuple:
+    """(forward logits, loss, the stacked logits of S teacher-forced
+    decode steps from a fresh cache) on ``dev``."""
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    key = "embeds" if "embeds" in b else "tokens"
+    B, S = b[key].shape[:2]
+    with torch.inference_mode():
+        full = lm.forward(params, cfg, b, q_block=block, kv_block=block)
+        loss = lm.loss_fn(params, cfg, b, q_block=block, kv_block=block)
+        cache = lm.init_cache(cfg, B, S, device=dev)
+        dec = torch.stack([lm.decode_step(
+            params, cfg, cache, {key: b[key][:, p:p + 1]}, p)[0][:, 0]
+            for p in range(S)], dim=1)
+    return full, loss, dec
+
+
+def check_err(what: str, err: float, tol: float) -> str:
+    if not err <= tol:
+        raise AssertionError(f"lm_exact: {what} max |diff| {err:.3e} > {tol}")
+    return f"{err:.3e}"
+
+
+def lm_card_vs_cpu_serve(cfg, params, dev) -> dict:
+    """serve_batch of the first prompts on the card and on the CPU: the
+    tokens agree at every step whose CPU top-2 margin is > LM_MARGIN
+    (a step under it is printed, and its row compared no further), and
+    the logits of every compared step are within LM_TOL."""
+    prompts = lm_prompts(cfg.vocab, LM_PROMPTS)[:LM_CPU_PROMPTS]
+    lens_s = np.sort([len(p) for p in prompts])
+    seen = {"card": [], "cpu": []}
+    t0 = time.perf_counter()
+    card_out, _ = serve_batch(cfg, params, prompts, LM_CPU_MAX_NEW,
+                              on_step=lambda p, lg: seen["card"].append(
+                                  lg.float().cpu()))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out, _ = serve_batch(cfg, tree_to(params, "cpu"), prompts,
+                             LM_CPU_MAX_NEW, on_step=lambda p, lg:
+                             seen["cpu"].append(lg.float()))
+    cpu_s = time.perf_counter() - t0
+    err, near, live = 0.0, [], set(range(len(prompts)))
+    for pos, (a, b) in enumerate(zip(seen["card"], seen["cpu"])):
+        for i in sorted(live):
+            err = max(err, float((a[i] - b[i]).abs().max()))
+            if pos + 1 < lens_s[i]:
+                continue                         # a prompt token comes next
+            top2 = torch.topk(b[i], 2).values
+            margin = float(top2[0] - top2[1])
+            if int(a[i].argmax()) != int(b[i].argmax()):
+                if margin > LM_MARGIN:
+                    raise AssertionError(f"lm_exact: step {pos} row {i}: "
+                                         f"card and CPU tokens differ at "
+                                         f"margin {margin:.3e}")
+                near.append((pos, i, margin))
+                live.discard(i)
+    order = np.argsort([len(p) for p in prompts])
+    for i, o in enumerate(order):
+        if i in live and not np.array_equal(card_out[o], cpu_out[o]):
+            raise AssertionError(f"lm_exact: served tokens of prompt {o} "
+                                 f"differ between the card and the CPU")
+    return {"serve_logits": check_err("serve logits card vs CPU", err,
+                                      LM_TOL),
+            "serve_steps": len(seen["cpu"]), "serve_card_s": f"{card_s:.3f}",
+            "serve_cpu_s": f"{cpu_s:.3f}", "near_ties": near or "none",
+            "served_identical": not near}
+
+
+def lm_exact_phase(dev) -> None:
+    """Phase 14: float32 on the card against itself (decode against
+    forward) and against the CPU, at full width and at every smoke
+    config."""
+    t_phase = time.perf_counter()
+    require_tf32_off()
+    kernels.reset_launch_counts()
+    # (a) Qwen1.5-0.5B at full width, float32
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(LM_EXACT_B, LM_EXACT_S))
+    full, _, dec = lm_run(params, cfg, {"tokens": toks, "labels": toks}, dev,
+                          LM_EXACT_BLOCK)
+    res = {"decode_vs_forward": check_err(
+        "Qwen decode vs forward", max_diff(dec, full), LM_TOL)}
+    res.update(lm_card_vs_cpu_serve(cfg, params, dev))
+    del params, full, dec
+    torch.cuda.empty_cache()
+    phase("lm_exact_full", arch=LM_ARCH, dtype="float32", B=LM_EXACT_B,
+          S=LM_EXACT_S, block=LM_EXACT_BLOCK, tol=LM_TOL,
+          wall_s=f"{time.perf_counter() - t0:.2f}", **res)
+    # (b) every arch at its smoke config, float32, card against CPU
+    t0 = time.perf_counter()
+    worst = {}
+    for name in sorted(ARCHS):
+        cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+        params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                   device=dev)
+        batch = lm_batch(cfg, LM_SMOKE_B, LM_SMOKE_S,
+                         np.random.default_rng(2))
+        card = lm_run(params, cfg, batch, dev, LM_SMOKE_BLOCK)
+        cpu = lm_run(tree_to(params, "cpu"), cfg, batch, "cpu",
+                     LM_SMOKE_BLOCK)
+        errs = {k: check_err(f"{name} {k} card vs CPU", max_diff(a, b),
+                             LM_SMOKE_TOL)
+                for k, a, b in zip(("forward", "loss", "decode"), card, cpu)}
+        if name in LM_DECODE_ARCHS:
+            errs["decode_vs_forward"] = check_err(
+                f"{name} decode vs forward", max_diff(card[2], card[0]),
+                LM_SMOKE_TOL)
+        worst[name] = errs
+    phase("lm_exact_smoke", archs=len(worst), dtype="float32",
+          B=LM_SMOKE_B, S=LM_SMOKE_S, block=LM_SMOKE_BLOCK, tol=LM_SMOKE_TOL,
+          wall_s=f"{time.perf_counter() - t0:.2f}",
+          max_abs=json.dumps(worst, separators=(",", ":")))
+    # (c) mamba2-130m at full width, float32: decode against forward
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LM_SSM_ARCH), dtype="float32")
+    params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, size=(1, LM_SSM_S))
+    full, _, dec = lm_run(params, cfg, {"tokens": toks, "labels": toks}, dev,
+                          LM_EXACT_BLOCK)
+    err = check_err("mamba2 decode vs forward", max_diff(dec, full), LM_TOL)
+    del params, full, dec
+    torch.cuda.empty_cache()
+    require_no_launches("[lm_exact]")
+    phase("lm_exact_ssm", arch=LM_SSM_ARCH, dtype="float32", B=1,
+          S=LM_SSM_S, chunks=LM_SSM_S // min(128, LM_SSM_S),
+          decode_vs_forward=err, tol=LM_TOL,
+          wall_s=f"{time.perf_counter() - t0:.2f}")
+    phase("lm_exact", wall_s=f"{time.perf_counter() - t_phase:.2f}",
+          launches=json.dumps(kernels.launch_counts(),
+                              separators=(",", ":")),
+          card=smi("name,power.limit").replace(" ", "_"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1329,6 +1656,12 @@ def main() -> int:
         # 12. the alignment server: concurrent clients, one batch each
         launches_serve = serve_phase(idx, dev, tmp, reads, sam, pe_run["r1"],
                                      pe_run["r2"], pes_r)
+
+    # 13. the LM serving path: Qwen1.5-0.5B at full width in bf16
+    lm_serve_phase(dev)
+
+    # 14. the LM path in float32: decode vs forward, the card vs the CPU
+    lm_exact_phase(dev)
 
     report = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,13 +1,29 @@
-"""Worker-level sharding of ``mem``: which slice of a FASTQ this process
-aligns (``read_shard``) and how it streams it (``align_shard``).
+"""Runtime side of the distribution layer: worker-level sharding of
+``mem`` (``read_shard``, ``align_shard``), and the ambient mesh and
+option flags that model code reads (``get_option``, ``options``,
+``constrain``).
 
-The counterpart of ``repro.dist.api``'s ``read_shard`` and
-``align_shard``; the rank comes from ``torch.distributed`` where the
-reference asks the jax runtime.
+The counterpart of ``repro.dist.api``.  The rank comes from
+``torch.distributed`` where the reference asks the jax runtime, and the
+ambient mesh is a ``torch.distributed.device_mesh.DeviceMesh``.
+
+Model code never imports a mesh directly.  It calls ``constrain(x,
+...)`` with LOGICAL axis names ("batch", "model", None); with no active
+mesh the call returns ``x`` unchanged, which is what lets the same model
+run on one device.  Laying a tensor out over a mesh is the job of the
+sharding layer, which the port does not have yet: under an active mesh
+``constrain`` raises instead of silently leaving ``x`` where it is.
+
+Options ("seq_parallel", "moe_ep", "moe_gather_w", "moe_groups",
+"dp_all") are scoped, thread-local flags read by model code via
+``get_option`` so a variant sweep never threads config through every
+call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 import warnings
 
@@ -15,6 +31,73 @@ import torch
 
 from .. import obs
 from ..io.stream import open_batches
+
+_STATE = threading.local()
+
+
+def _opts() -> dict:
+    if not hasattr(_STATE, "options"):
+        _STATE.options = {}
+    return _STATE.options
+
+
+def get_option(name: str, default=None):
+    """Current value of a distribution option (None when unset)."""
+    return _opts().get(name, default)
+
+
+@contextlib.contextmanager
+def options(**kw):
+    """Scoped option overrides (nestable; restores previous values)."""
+    prev = dict(_opts())
+    _opts().update(kw)
+    try:
+        yield
+    finally:
+        _STATE.options = prev
+
+
+def current_mesh():
+    """The active ``DeviceMesh`` of this thread, or None."""
+    return getattr(_STATE, "mesh", None)
+
+
+@contextlib.contextmanager
+def active_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the ambient mesh for
+    ``constrain`` calls."""
+    prev = current_mesh()
+    _STATE.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _STATE.mesh = prev
+
+
+def batch_mesh_axes(mesh) -> tuple[str, ...]:
+    """Mesh axes the global batch is sharded over.  Normally the pure-DP
+    axes; with the ``dp_all`` option every mesh axis acts data-parallel."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if get_option("dp_all"):
+        return names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def constrain(x, *axes):
+    """Sharding constraint by logical axis name per tensor dim.
+
+    Returns ``x`` unchanged without an active mesh, as the reference
+    does.  Under an active mesh it raises ``NotImplementedError``: the
+    layout of a tensor over a ``DeviceMesh`` belongs to the sharding
+    layer (``dist/sharding.py``), which the port does not have yet.
+    """
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    raise NotImplementedError(
+        f"constrain{axes!r} under an active mesh "
+        f"{tuple(mesh.mesh_dim_names or ())!r}: sharding over a DeviceMesh "
+        f"needs the sharding layer (dist/sharding.py), not ported yet")
 
 
 def read_shard(spec: str | None = None) -> tuple[int, int]:
