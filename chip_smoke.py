@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives single-end and paired-end ``mem``, sharded ``mem``, ``memdist``,
-the alignment server and the LM serving path on the card through the
-port's own entry points and checks every hand-written kernel against its
+the alignment server, the LM serving path and LM training on the card
+through the port's own entry points and checks every hand-written kernel against its
 plain PyTorch version.
 Phases (each prints one line, any failure raises and exits non-zero):
 
@@ -102,11 +102,30 @@ Phases (each prints one line, any failure raises and exits non-zero):
    ``tests/test_models.py``'s test; (c) mamba2-130m at full width, B=1,
    S=256 (two SSD chunks): decode against forward within 1e-3.  It prints
    each check's max error by arch.
+15. LM train: Qwen1.5-0.5B at full width in bf16 trained 8 steps by
+   ``launch.train.train`` at ``launch/train.py``'s CLI shape (B=8,
+   S=128, blocks of 128), one checkpoint (6.2 GB) written at the end:
+   every loss finite; the first step's seconds, the warm ms a step,
+   tokens/s, ``max_memory_allocated``, the save seconds (the last
+   step's end to ``train``'s return) and the restore seconds of that
+   checkpoint, restored onto the card equal to the trained state bit for
+   bit; then 2 more steps under torch.profiler (device ms a step, busy
+   share, the largest device items).  The smoke config then trains 8
+   steps, resumes from that checkpoint to step 10, and its losses at
+   steps 8-9 equal those of one uninterrupted 10-step run bit for bit;
+16. LM train exact, float32, TF32 off: one ``make_train_step`` of
+   Qwen1.5-0.5B at full width (B=1, S=64) on the card and on the CPU
+   from the same params, and 3 steps of every smoke arch at S=128 (one
+   full SSD chunk; ``AdamWConfig(lr=1e-3, warmup_steps=1)``): the losses
+   within 1e-4 of (1 + |loss|), each gradient leaf (read from step 1's
+   first moment) within 1e-3 of its max, every one finite, and the
+   params at most 2 x lr x steps apart with at most 1e-4 of the elements
+   more than 1e-5 apart.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
-launched.  The LM path reaches none of the three kernels: phases 13-14
+launched.  The LM path reaches none of the three kernels: phases 13-16
 set the counters to 0 before they start and fail if any kernel was
-launched by the end of either.
+launched by the end of any of them.
 
 The line before the last is one JSON object with every kernel's launches
 (from phases 4-12; the LM phases launch none), error, times and bound;
@@ -140,6 +159,11 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import cli, kernels, obs  # noqa: E402
 from repro_torch.configs import ARCHS, get_arch, smoke_config  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import synthetic_batch, train  # noqa: E402
+from repro_torch.ft import CheckpointManager  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.api import Aligner  # noqa: E402
 from repro_torch.core.bsw import BSWParams, pack_tasks  # noqa: E402
@@ -204,6 +228,20 @@ LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_BLOCK = 2, 16, 8
 LM_DECODE_ARCHS = ("qwen1.5-0.5b", "internlm2-1.8b", "mamba2-130m",
                    "zamba2-7b", "musicgen-large")
 LM_SSM_ARCH, LM_SSM_S = "mamba2-130m", 256           # two SSD chunks of 128
+# phase 15: launch/train.py's CLI shape, 8 steps, one checkpoint at the end
+LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_BLOCK = 8, 8, 128, 128
+LM_RESUME_STEPS = 10       # the smoke config resumed at step 8 of 10
+LM_TRAIN_PROFILED_STEPS = 2
+# phase 16, float32 card against CPU: one step at full width (B=1, S=64)
+# and 3 steps of every smoke arch at S=128, where the reference's SSD
+# gradients are not finite
+LM_GRAD_B, LM_GRAD_S = 1, 64
+LM_GRAD_SMOKE_B, LM_GRAD_SMOKE_S, LM_GRAD_SMOKE_STEPS = 2, 128, 3
+LM_GRAD_SMOKE_OPT = AdamWConfig(lr=1e-3, warmup_steps=1)
+LM_LOSS_TOL = 1e-4         # |loss diff| / (1 + |loss|)
+LM_GRAD_TOL = 1e-3         # max |grad diff| over the leaf's max |grad|
+LM_PARAM_CLOSE = 1e-5      # updated params: all but a share within this
+LM_PARAM_SHARE = 1e-4      # the share of elements allowed over it
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
 L2_FLUSH_BYTES = 256 << 20
@@ -216,6 +254,7 @@ PROFILER_ATTEMPTS = 3
 # clock (half its 128 float32 lanes), and the BSW cell has no multiply-
 # add to count twice, so 64 lanes x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # int32 ALU operations per banded DP cell of ksw_extend2, the spec
 # (core/bsw.py:bsw_extend's inner loop; loads, stores, loop control and
@@ -1233,12 +1272,6 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    return [tree]
-
-
 def max_diff(a, b) -> float:
     return float((a.float().cpu() - b.float().cpu()).abs().max())
 
@@ -1497,6 +1530,277 @@ def lm_exact_phase(dev) -> None:
           card=smi("name,power.limit").replace(" ", "_"))
 
 
+# ---------------------------------------------------------------------
+# phases 15-16: LM training
+# ---------------------------------------------------------------------
+
+def finite_losses(what: str, losses: list) -> None:
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+
+
+def profiled_train_steps(cfg, state, dev) -> dict:
+    """LM_TRAIN_PROFILED_STEPS train steps of phase 15's geometry under
+    the profiler, after one unprofiled step: device time a step, the
+    card's busy share and the largest device items."""
+    step_fn = make_train_step(cfg, q_block=LM_TRAIN_BLOCK,
+                              kv_block=LM_TRAIN_BLOCK)
+    batch = synthetic_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS,
+                            device=dev)
+    state, loss = step_fn(state, batch)
+    float(loss)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_TRAIN_PROFILED_STEPS):
+            state, loss = step_fn(state, batch)
+            float(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = {e.key: e.self_device_time_total for e in events
+              if e.self_device_time_total > 0}
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    n = LM_TRAIN_PROFILED_STEPS
+    return {"profiled_steps": n,
+            "profiled_ms_per_step": f"{wall / n * 1e3:.3f}",
+            "device_ms_per_step": f"{sum(dev_us.values()) / 1e3 / n:.3f}",
+            "device_busy": f"{sum(dev_us.values()) / 1e6 / wall:.4f}",
+            "aten_calls_per_step": sum(e.count for e in events
+                                       if e.key.startswith("aten::")) // n,
+            "kernel_launches_per_step": sum(
+                e.count for e in events
+                if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                             "cuLaunchKernel", "cuLaunchKernelEx")) // n,
+            "top_ms": json.dumps({k[:40]: round(v / 1e3 / n, 3)
+                                  for k, v in top}, separators=(",", ":"))}
+
+
+def train_step_bound(cfg, params) -> dict:
+    """The least time one train step of phase 15 could take: the larger
+    of its products' operations over the bf16 peak and the bytes it must
+    move over the memory rate.  Operations: the weight products of the
+    forward, the backward (twice the forward) and full remat's second
+    forward of the blocks, and causal attention's two products a layer
+    (the causal half).  Bytes: the params and both float32 moments, each
+    read once and written once."""
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    n_blocks = sum(x.numel() for x in tree_leaves(params["blocks"]))
+    attn = (4 * LM_TRAIN_B * cfg.n_heads * cfg.head_dim * cfg.n_layers
+            * LM_TRAIN_S * (LM_TRAIN_S + 1) // 2)
+    fwd_blocks = 2 * tokens * n_blocks + attn
+    flops = 3 * (fwd_blocks + 2 * tokens * params["head"].numel()) \
+        + fwd_blocks
+    nbytes = sum(2 * x.numel() * (x.element_size() + 8)
+                 for x in tree_leaves(params))
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"step_tflop": f"{flops / 1e12:.3f}",
+            "step_gb_moved": f"{nbytes / 1e9:.3f}",
+            "bound_ms": f"{max(t_ops, t_bytes) * 1e3:.3f}",
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lm_train_phase(dev, tmp: pathlib.Path) -> None:
+    """Phase 15: Qwen1.5-0.5B at full width in bf16 trained 8 steps by
+    ``launch.train.train`` (B=8, S=128; one checkpoint, at the end),
+    its checkpoint restored bit for bit, 2 more steps profiled; then
+    the smoke config resumed at step 8 of 10, against 10 steps in one
+    run."""
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = []
+    t0 = time.perf_counter()
+    state, losses = train(
+        cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_B, seq=LM_TRAIN_S,
+        q_block=LM_TRAIN_BLOCK, ckpt_dir=str(tmp / "full"),
+        ckpt_every=LM_TRAIN_STEPS + 1, device=dev, verbose=False,
+        on_step=lambda step, loss, s: ends.append((s, time.perf_counter())))
+    save_s = time.perf_counter() - ends[-1][1]     # the final save
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite_losses("lm_train", losses)
+    if len(losses) != LM_TRAIN_STEPS:
+        raise AssertionError(f"lm_train ran {len(losses)} steps")
+    ckpt_bytes = sum(f.stat().st_size for f in (tmp / "full").rglob("*.npy"))
+    t0 = time.perf_counter()
+    restored, at = CheckpointManager(tmp / "full").restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if at != LM_TRAIN_STEPS or not all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(tree_leaves(restored), tree_leaves(state))):
+        raise AssertionError("lm_train: the restored state is not the "
+                             "trained one")
+    del restored
+    bound = train_step_bound(cfg, state["params"])
+    prof = profiled_train_steps(cfg, state, dev)
+    del state
+    torch.cuda.empty_cache()
+    warm = statistics.mean(s for s, _ in ends[1:])
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    phase("lm_train", arch=LM_ARCH, dtype=cfg.dtype, B=LM_TRAIN_B,
+          S=LM_TRAIN_S, steps=LM_TRAIN_STEPS, train_s=f"{train_s:.3f}",
+          first_step_s=f"{ends[0][0]:.3f}",
+          warm_ms_per_step=f"{warm * 1e3:.3f}",
+          tokens_per_s_warm=f"{tokens / warm:.1f}",
+          max_mem_gb=f"{peak / 1e9:.3f}",
+          losses=",".join(f"{x:.6f}" for x in losses),
+          ckpt_gb=f"{ckpt_bytes / 1e9:.3f}", save_s=f"{save_s:.3f}",
+          restore_s=f"{restore_s:.3f}", restored_identical=True, **bound,
+          **prof, card=smi("name,power.limit").replace(" ", "_"))
+    # resume at the smoke config: steps 8-9 after a restart equal steps
+    # 8-9 of one uninterrupted run, bit for bit
+    t0 = time.perf_counter()
+    scfg = smoke_config(LM_ARCH)
+    kw = dict(batch=LM_TRAIN_B, seq=LM_TRAIN_S, q_block=LM_TRAIN_BLOCK,
+              device=dev, verbose=False)
+    first = train(scfg, steps=LM_TRAIN_STEPS, ckpt_dir=str(tmp / "resume"),
+                  **kw)[1]
+    resumed = train(scfg, steps=LM_RESUME_STEPS, ckpt_dir=str(tmp / "resume"),
+                    **kw)[1]
+    whole = train(scfg, steps=LM_RESUME_STEPS, ckpt_dir=str(tmp / "whole"),
+                  **kw)[1]
+    finite_losses("lm_train_resume", whole)
+    if first + resumed != whole or len(resumed) != 2:
+        raise AssertionError(f"lm_train_resume: {first} + {resumed} != "
+                             f"{whole}")
+    require_no_launches("[lm_train]")
+    phase("lm_train_resume", arch=LM_ARCH, config="smoke", dtype=scfg.dtype,
+          resumed_at=LM_TRAIN_STEPS, steps=LM_RESUME_STEPS,
+          losses_8_9=",".join(repr(x) for x in resumed), identical=True,
+          wall_s=f"{time.perf_counter() - t0:.2f}",
+          phase_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def grad_errs(a: dict, b: dict) -> float:
+    """The largest, over the leaves, max |a - b| over the leaf's max |b|."""
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.float().cpu()
+        if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+            raise AssertionError("lm_train_exact: a gradient is not finite")
+        scale = float(y.abs().max())
+        worst = max(worst, float((x.float().cpu() - y).abs().max())
+                    / (scale if scale > 0 else 1.0))
+    return worst
+
+
+def param_errs(a: dict, b: dict) -> tuple[float, float]:
+    """(max |a - b|, the share of elements over LM_PARAM_CLOSE)."""
+    worst, over, n = 0.0, 0, 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float().cpu() - y.float().cpu()).abs()
+        if not torch.isfinite(d).all():
+            raise AssertionError("lm_train_exact: a parameter is not finite")
+        worst = max(worst, float(d.max()))
+        over += int((d > LM_PARAM_CLOSE).sum())
+        n += d.numel()
+    return worst, over / n
+
+
+def loss_err(a, b) -> float:
+    return abs(float(a) - float(b)) / (1 + abs(float(b)))
+
+
+def train_run(cfg, params, batches, opt, block) -> tuple:
+    """(every step's loss, step 1's gradients, the final params) of
+    ``make_train_step`` over ``batches`` from ``params``.  The gradients
+    are read from step 1's first moment, ``mu = (1 - b1) * clip * g``:
+    each leaf's gradient times one scalar, without a second backward."""
+    step_fn = make_train_step(cfg, opt, q_block=block, kv_block=block)
+    state = {"params": params, "opt": adamw_init(params)}
+    losses, grads = [], None
+    for b in batches:
+        state, lv = step_fn(state, b)
+        losses.append(float(lv))
+        if grads is None:
+            grads = state["opt"]["mu"]
+    return losses, grads, state["params"]
+
+
+def lm_train_exact_phase(dev) -> None:
+    """Phase 16: float32 training on the card against the CPU: one step
+    at full width, 3 steps of every smoke arch at S=128."""
+    t_phase = time.perf_counter()
+    require_tf32_off()
+    kernels.reset_launch_counts()
+    # (a) Qwen1.5-0.5B at full width, float32, one step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    batch = synthetic_batch(cfg, LM_GRAD_B, LM_GRAD_S, 0, device=dev)
+    opt = AdamWConfig()
+    card = train_run(cfg, params, [batch], opt, LM_EXACT_BLOCK)
+    card = (card[0], tree_to(card[1], "cpu"), tree_to(card[2], "cpu"))
+    card_s = time.perf_counter() - t0
+    params = tree_to(params, "cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = train_run(cfg, params, [tree_to(batch, "cpu")], opt,
+                    LM_EXACT_BLOCK)
+    cpu_s = time.perf_counter() - t0
+    lr1 = opt.lr / opt.warmup_steps
+    errs = (loss_err(card[0][0], cpu[0][0]), grad_errs(card[1], cpu[1]),
+            *param_errs(card[2], cpu[2]))
+    if not (errs[0] <= LM_LOSS_TOL and errs[1] <= LM_GRAD_TOL
+            and errs[2] <= 2 * lr1 and errs[3] <= LM_PARAM_SHARE):
+        raise AssertionError(
+            f"lm_train_exact_full: loss {errs[0]:.3e}, grads {errs[1]:.3e}, "
+            f"params {errs[2]:.3e} ({errs[3]:.2e} over {LM_PARAM_CLOSE})")
+    phase("lm_train_exact_full", arch=LM_ARCH, dtype="float32", B=LM_GRAD_B,
+          S=LM_GRAD_S, loss=f"{cpu[0][0]:.6f}", loss_err=f"{errs[0]:.3e}",
+          grad_err=f"{errs[1]:.3e}", param_max=f"{errs[2]:.3e}",
+          param_share_over=f"{errs[3]:.2e}",
+          tol=f"loss {LM_LOSS_TOL} grads {LM_GRAD_TOL} params {2 * lr1:.1e}",
+          card_s=f"{card_s:.2f}", cpu_s=f"{cpu_s:.2f}")
+    del params, card, cpu
+    # (b) every smoke arch, float32, 3 steps at S=128: finite gradients
+    t0 = time.perf_counter()
+    worst = {}
+    for name in sorted(ARCHS):
+        cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+        params, _ = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                   device=dev)
+        batches = []
+        for i in range(LM_GRAD_SMOKE_STEPS):
+            b = synthetic_batch(cfg, LM_GRAD_SMOKE_B, LM_GRAD_SMOKE_S, i,
+                                device=dev)
+            if "embeds" in b:
+                b["embeds"] = b["embeds"].float()
+            batches.append(b)
+        card = train_run(cfg, params, batches, LM_GRAD_SMOKE_OPT,
+                         LM_GRAD_SMOKE_S)
+        cpu = train_run(cfg, tree_to(params, "cpu"),
+                        [tree_to(b, "cpu") for b in batches],
+                        LM_GRAD_SMOKE_OPT, LM_GRAD_SMOKE_S)
+        finite_losses(f"lm_train_exact_smoke {name}", card[0] + cpu[0])
+        g = grad_errs(card[1], cpu[1])
+        lerr = max(loss_err(a, b) for a, b in zip(card[0], cpu[0]))
+        p_max, p_share = param_errs(card[2], cpu[2])
+        bound = 2 * LM_GRAD_SMOKE_OPT.lr * LM_GRAD_SMOKE_STEPS
+        if not (lerr <= LM_LOSS_TOL and g <= LM_GRAD_TOL and p_max <= bound
+                and p_share <= LM_PARAM_SHARE):
+            raise AssertionError(
+                f"lm_train_exact_smoke {name}: loss {lerr:.3e}, grads "
+                f"{g:.3e}, params {p_max:.3e} ({p_share:.2e} over "
+                f"{LM_PARAM_CLOSE})")
+        worst[name] = {"loss": f"{lerr:.2e}", "grad": f"{g:.2e}",
+                       "param": f"{p_max:.2e}"}
+    require_no_launches("[lm_train_exact]")
+    phase("lm_train_exact_smoke", archs=len(worst), dtype="float32",
+          B=LM_GRAD_SMOKE_B, S=LM_GRAD_SMOKE_S, steps=LM_GRAD_SMOKE_STEPS,
+          finite=True, max_err=json.dumps(worst, separators=(",", ":")),
+          wall_s=f"{time.perf_counter() - t0:.2f}")
+    phase("lm_train_exact", wall_s=f"{time.perf_counter() - t_phase:.2f}",
+          launches=json.dumps(kernels.launch_counts(),
+                              separators=(",", ":")),
+          card=smi("name,power.limit").replace(" ", "_"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1662,6 +1966,14 @@ def main() -> int:
 
     # 14. the LM path in float32: decode vs forward, the card vs the CPU
     lm_exact_phase(dev)
+
+    # 15. LM training: Qwen1.5-0.5B at full width in bf16, a checkpoint,
+    # a resume
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_train_phase(dev, pathlib.Path(tmp))
+
+    # 16. LM training in float32: the card against the CPU
+    lm_train_exact_phase(dev)
 
     report = []
     for name, (source, replaces) in KERNELS.items():

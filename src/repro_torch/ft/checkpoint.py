@@ -10,12 +10,16 @@
   skipping incomplete/corrupt ones — the restart path after node failure.
 
 A state is a tree of plain dicts, lists and tuples whose leaves are
-arrays or scalars (``None`` is an empty subtree; any other type is a
-leaf).  Leaves are keyed exactly as
+tensors (on any device), arrays or scalars (``None`` is an empty
+subtree; any other type is a leaf).  Leaves are keyed exactly as
 ``jax.tree_util.tree_flatten_with_path`` keys them — dict keys sorted,
 sequence positions by index, joined with ``/`` — so the on-disk format
 is ``repro.ft.checkpoint``'s and a checkpoint either package writes
-restores in the other.
+restores in the other.  A bfloat16 leaf is written as the reference
+writes one (numpy saves ``ml_dtypes``' bfloat16 as 2-byte ``'<V2'``
+records): the same bytes, header, ``"dtype": "bfloat16"`` and checksum.
+``restore`` reads those records back as bfloat16, which the reference
+itself cannot (its ``astype`` has no cast from ``'<V2'``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ import pathlib
 import shutil
 
 import numpy as np
+import torch
+
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"          # numpy's header for ml_dtypes' bfloat16
 
 
 def _leaf_paths(tree, prefix: tuple = ()) -> list:
@@ -45,6 +53,46 @@ def _leaf_paths(tree, prefix: tuple = ()) -> list:
     for k, sub in items:
         out.extend(_leaf_paths(sub, prefix + (k,)))
     return out
+
+
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """``leaf`` on the host as the array the reference writes for it, and
+    its manifest dtype: a tensor's bfloat16 values as 2-byte records."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2"), _BF16
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _save_npy(path, arr: np.ndarray, dtype: str) -> None:
+    if dtype != _BF16:
+        np.save(path, arr)
+        return
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = _BF16_DESCR
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        np.ascontiguousarray(arr).tofile(f)
+
+
+def _sha1(arr: np.ndarray) -> str:
+    """The reference's checksum, ``sha1(arr.tobytes())``, taken over the
+    array's buffer without copying it."""
+    return hashlib.sha1(
+        np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
+
+
+def _as_like(arr: np.ndarray, dtype: str, like):
+    """A restored leaf with the type, device and dtype of ``like``."""
+    if isinstance(like, torch.Tensor):
+        t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+             if dtype == _BF16 else torch.from_numpy(arr))
+        return t.to(device=like.device, dtype=like.dtype)
+    target = np.asarray(like).dtype if hasattr(like, "dtype") else arr.dtype
+    return arr.astype(target)
 
 
 def _unflatten(like, leaves):
@@ -74,14 +122,14 @@ class CheckpointManager:
         tmp.mkdir(parents=True)
         manifest = {"step": step, "leaves": {}}
         for key, leaf in _leaf_paths(state):
-            arr = np.asarray(leaf)
+            arr, dtype = _host(leaf)
             fn = hashlib.sha1(key.encode()).hexdigest()[:16] + ".npy"
-            np.save(tmp / fn, arr)
+            _save_npy(tmp / fn, arr, dtype)
             manifest["leaves"][key] = {
                 "file": fn,
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 "shape": list(arr.shape),
-                "sha1": hashlib.sha1(arr.tobytes()).hexdigest(),
+                "sha1": _sha1(arr),
             }
         (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
         if final.exists():
@@ -115,17 +163,14 @@ class CheckpointManager:
         leaves = {}
         for key, meta in manifest["leaves"].items():
             arr = np.load(d / meta["file"])
-            if hashlib.sha1(arr.tobytes()).hexdigest() != meta["sha1"]:
+            if _sha1(arr) != meta["sha1"]:
                 raise IOError(f"checksum mismatch for {key}")
-            leaves[key] = arr
+            leaves[key] = arr, meta["dtype"]
         out = []
         for key, leaf in _leaf_paths(like_state):
             if key not in leaves:
                 raise KeyError(f"missing leaf {key}")
-            arr = leaves[key]
-            target_dtype = np.asarray(leaf).dtype if hasattr(leaf, "dtype") \
-                else arr.dtype
-            out.append(arr.astype(target_dtype))
+            out.append(_as_like(*leaves[key], leaf))
         return _unflatten(like_state, iter(out))
 
     def _gc(self):

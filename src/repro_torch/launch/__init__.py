@@ -1,2 +1,2 @@
 """Launchers of the LM scaffolding (``repro.launch``' counterpart):
-``steps`` and ``serve``."""
+``steps``, ``serve`` and ``train``."""

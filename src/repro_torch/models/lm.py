@@ -16,11 +16,13 @@ KV caches and SSM states are stacked the same way, allocated once by
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..api import resolve_device
 from ..configs.base import ArchConfig
@@ -45,21 +47,35 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+#: what the "dots" remat policy saves: the outputs of the 2-D products
+#: (the weight projections, ``x @ W`` folded to ``mm``); batched products
+#: (attention's ``bmm``s, the experts') are recomputed, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` does
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _ckpt(f, cfg):
     """Recompute ``f`` in the backward pass when ``cfg.remat`` asks for
-    it and autograd records; under ``torch.inference_mode`` or
-    ``no_grad`` (serving) ``f`` runs as it is."""
+    it and autograd records: all but the 2-D products' outputs
+    (``remat_policy="dots"``) or, as the reference does for any other
+    policy, everything.  Under ``torch.inference_mode`` or ``no_grad``
+    (serving) ``f`` runs as it is."""
     if not cfg.remat:
         return f
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: only 'full' recompute is "
-            f"ported; the other policies come with the training step")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
 
     def run(*args):
         if not torch.is_grad_enabled():
             return f(*args)
-        return checkpoint(f, *args, use_reentrant=False)
+        return checkpoint(f, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -69,19 +85,6 @@ def _cx(x):
     if get_option("seq_parallel") and x.ndim == 3:
         return constrain(x, "batch", "model", None)
     return constrain(x, "batch", None, None)
-
-
-def _layer(tree, *idx):
-    """The slice ``idx`` of every stacked tensor of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, *idx) for k, v in tree.items()}
-    return tree[idx]
-
-
-def _n_stacked(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.shape[0]
 
 
 def _prefix_axes(ax, name: str):
@@ -254,9 +257,21 @@ def _positions(cfg, batch, B, S, device):
     return ar.expand(B, S)
 
 
+def _unstack(tree) -> list:
+    """Every layer's slice of the stacked tensors of ``tree``, taken with
+    one ``unbind`` a tensor: its backward is one ``stack``, where slicing
+    ``tensor[i]`` layer by layer would zero-fill a gradient the size of
+    the whole stack for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _layers(f, x, stacked):
-    for i in range(_n_stacked(stacked)):
-        x = f(x, _layer(stacked, i))
+    for p in _unstack(stacked):
+        x = f(x, p)
     return x
 
 
@@ -360,8 +375,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, dtype=None,
 def _ssm_decode_layers(blocks, x, state, conv, cfg):
     """Decode one token through stacked SSM blocks, writing each layer's
     new state and conv window into ``state[i]`` / ``conv[i]``."""
-    for i in range(_n_stacked(blocks)):
-        p = _layer(blocks, i)
+    for i, p in enumerate(_unstack(blocks)):
         h, st2, conv2 = ssd_decode(p["ssm"], rms_norm(x, p["ln"]),
                                    state[i], conv[i], cfg)
         state[i] = st2
@@ -386,18 +400,18 @@ def decode_step(params, cfg: ArchConfig, cache, batch, pos: int):
         x = _ssm_decode_layers(params["blocks"], x, cache["state"],
                                cache["conv"], cfg)
     elif cfg.family == "hybrid":
-        for g in range(_n_stacked(params["groups"])):
-            x = _ssm_decode_layers(_layer(params["groups"], g), x,
-                                   cache["state"][g], cache["conv"][g], cfg)
+        for g, pg in enumerate(_unstack(params["groups"])):
+            x = _ssm_decode_layers(pg, x, cache["state"][g],
+                                   cache["conv"][g], cfg)
             x = _attn_decode_block(params["shared"], x, cache["k"][g],
                                    cache["v"][g], pos, cfg)
         if "tail" in params:
             x = _ssm_decode_layers(params["tail"], x, cache["state_tail"],
                                    cache["conv_tail"], cfg)
     else:
-        for i in range(_n_stacked(params["blocks"])):
-            x = _attn_decode_block(_layer(params["blocks"], i), x,
-                                   cache["k"][i], cache["v"][i], pos, cfg)
+        for i, p in enumerate(_unstack(params["blocks"])):
+            x = _attn_decode_block(p, x, cache["k"][i], cache["v"][i], pos,
+                                   cfg)
 
     x = rms_norm(x, params["ln_f"])
     return apply_head(params, cfg, x), cache

@@ -110,7 +110,10 @@ def ssd_forward(p, x, cfg, chunk: int = 128):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Qi,Qj,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(diff), 0.0)
+    # exp after the mask: above the diagonal diff > 0 overflows exp, and
+    # where's backward would multiply that inf by 0 (NaN gradients)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                              -torch.inf))
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L
     y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores, dtc, xc)
 
