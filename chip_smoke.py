@@ -165,6 +165,12 @@ from repro_torch.ft import CheckpointManager  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.dist.api import active_mesh  # noqa: E402
+from repro_torch.dist.sharding import (P, Sharding,  # noqa: E402
+                                       distribute, make_batch_specs,
+                                       make_param_specs, moment_specs,
+                                       rules_for)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.api import Aligner  # noqa: E402
 from repro_torch.core.bsw import BSWParams, pack_tasks  # noqa: E402
 from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
@@ -242,6 +248,15 @@ LM_LOSS_TOL = 1e-4         # |loss diff| / (1 + |loss|)
 LM_GRAD_TOL = 1e-3         # max |grad diff| over the leaf's max |grad|
 LM_PARAM_CLOSE = 1e-5      # updated params: all but a share within this
 LM_PARAM_SHARE = 1e-4      # the share of elements allowed over it
+# phase 17: the dry run's smoke sweep and one production cell, each in a
+# process of its own (the placeholder world stays out of this one); the
+# production cell's attention in whole-sequence blocks (the counts are
+# those of 512-row blocks: PERF.md)
+DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k")
+DRYRUN_Q_BLOCK = 4096
+DRYRUN_TIMEOUT_S = 240
+# phase 18: phase 15's shape on a 1x1 mesh over an NCCL group of one
+LM_MESH_STEPS = 3
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
 L2_FLUSH_BYTES = 256 << 20
@@ -1801,6 +1816,158 @@ def lm_train_exact_phase(dev) -> None:
           card=smi("name,power.limit").replace(" ", "_"))
 
 
+# ---------------------------------------------------------------------
+# phases 17-18: the dry run, and a sharded train step
+# ---------------------------------------------------------------------
+
+def dryrun_phase(tmp: pathlib.Path) -> None:
+    """Phase 17: ``python -m repro_torch.launch.dryrun --smoke`` (5 smoke
+    cells on a 2x2 mesh of a 4-rank placeholder world) and the full-width
+    production cell DRYRUN_CELL on the 16x16 mesh of a 256-rank world,
+    two processes at once, fake tensors on the card; each must exit 0
+    and write its records, and each record is printed."""
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p])}
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    runs = {"smoke": base + ["--smoke", "--out-dir", str(tmp / "smoke")],
+            "cell": base + ["--arch", DRYRUN_CELL[0], "--shape",
+                            DRYRUN_CELL[1], "--q-block", str(DRYRUN_Q_BLOCK),
+                            "--out-dir", str(tmp / "cell")]}
+    procs = {k: subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+             for k, argv in runs.items()}
+    walls = {}
+    for k, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        walls[k] = time.perf_counter() - t_phase
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {k} exited {proc.returncode}:\n"
+                                 + out[-3000:])
+    recs = [json.loads(f.read_text())
+            for d in ("smoke", "cell") for f in sorted((tmp / d).glob("*.json"))]
+    if len(recs) != 6:
+        raise AssertionError(f"dryrun wrote {len(recs)} records, not 6")
+    for r in recs:
+        rf, c = r["roofline"], r["collectives"]
+        if not (r["cost"]["flops"] > 0 and c["counts"]
+                and r["device_type"] == "cuda"):
+            raise AssertionError(f"dryrun record {r['arch']} {r['shape']}: "
+                                 f"{r['cost']} {c['counts']}")
+        phase("dryrun_cell", arch=r["arch"], shape=r["shape"],
+              mesh=r["mesh"], run_s=f"{r['run_s']:.2f}",
+              flops_per_chip=f"{r['cost']['flops']:.6g}",
+              model_flops_per_chip=f"{rf['model_flops_per_chip']:.6g}",
+              coll_counts=json.dumps(c["counts"], separators=(",", ":")),
+              coll_bytes=json.dumps({k: int(v) for k, v in
+                                     c["bytes_by_kind"].items()},
+                                    separators=(",", ":")),
+              compute_s=f"{rf['compute_s']:.6g}",
+              memory_s=f"{rf['memory_s']:.6g}",
+              collective_s=f"{rf['collective_s']:.6g}",
+              dominant=rf["dominant"],
+              argument_bytes=r["memory"]["argument_bytes"],
+              peak_bytes=r["memory"]["peak_bytes"])
+    require_no_launches("[dryrun]")
+    phase("dryrun", cells=len(recs), smoke_wall_s=f"{walls['smoke']:.2f}",
+          cell_wall_s=f"{walls['cell']:.2f}",
+          q_block=DRYRUN_Q_BLOCK, hardware=json.dumps(recs[-1]["hardware"],
+                                                      separators=(",", ":")),
+          wall_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def lm_train_mesh_phase(dev) -> None:
+    """Phase 18: phase 15's train step (Qwen1.5-0.5B at full width in
+    bf16, B=8, S=128) LM_MESH_STEPS times from the same params, without a
+    mesh and then on a 1x1 cuda ``DeviceMesh`` over an NCCL group of one,
+    the state and the batches laid out by the sharding specs: the losses
+    and the params bit-identical, ``constrain`` reached in every layer,
+    the warm ms a step of both."""
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg = get_arch(LM_ARCH)
+    params, axes = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                  device=dev)
+    batches = [synthetic_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, i, device=dev)
+               for i in range(LM_MESH_STEPS)]
+    step_fn = make_train_step(cfg, q_block=LM_TRAIN_BLOCK,
+                              kv_block=LM_TRAIN_BLOCK)
+
+    def run(state, batches):
+        losses, secs = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+        return state, losses, secs
+
+    plain, plain_losses, plain_s = run(
+        {"params": params, "opt": adamw_init(params)}, batches)
+    plain_params = plain["params"]
+    del plain
+    calls = [0]
+    constrain = lm.constrain
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return constrain(*a, **k)
+    torch.distributed.init_process_group(
+        "nccl", store=torch.distributed.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    lm.constrain = counted
+    try:
+        mesh = make_host_mesh("cuda")
+        rules = rules_for(cfg, mesh)
+        ms = moment_specs(axes, params, mesh, rules)
+        state = distribute(
+            {"params": params, "opt": adamw_init(params)},
+            {"params": make_param_specs(axes, params, mesh, rules),
+             "opt": {"step": Sharding(mesh, P()), "mu": ms, "nu": ms}})
+        with active_mesh(mesh):
+            sharded = [distribute(b, make_batch_specs(b, mesh))
+                       for b in batches]
+            state, losses, secs = run(state, sharded)
+        same_losses = all(torch.equal(a.full_tensor(), b)
+                          for a, b in zip(losses, plain_losses))
+        same_params = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+            tree_leaves(state["params"]), tree_leaves(plain_params)))
+        placements = sorted({str(tuple(p.placements))
+                             for p in tree_leaves(state["params"])})
+    finally:
+        lm.constrain = constrain
+        torch.distributed.destroy_process_group()
+    if not (same_losses and same_params):
+        raise AssertionError(f"lm_train_mesh: losses identical "
+                             f"{same_losses}, params identical {same_params}")
+    if calls[0] < cfg.n_layers * LM_MESH_STEPS:
+        raise AssertionError(f"lm_train_mesh: constrain reached "
+                             f"{calls[0]} times in {LM_MESH_STEPS} steps of "
+                             f"{cfg.n_layers} layers")
+    require_no_launches("[lm_train_mesh]")
+    phase("lm_train_mesh", arch=LM_ARCH, dtype=cfg.dtype, B=LM_TRAIN_B,
+          S=LM_TRAIN_S, mesh="1x1", backend="nccl", steps=LM_MESH_STEPS,
+          losses=",".join(repr(float(x)) for x in plain_losses),
+          identical=True, constrain_calls=calls[0],
+          placements=json.dumps(placements, separators=(",", ":")),
+          warm_ms_mesh=f"{statistics.mean(secs[1:]) * 1e3:.3f}",
+          warm_ms_plain=f"{statistics.mean(plain_s[1:]) * 1e3:.3f}",
+          first_step_s_mesh=f"{secs[0]:.3f}",
+          first_step_s_plain=f"{plain_s[0]:.3f}",
+          wall_s=f"{time.perf_counter() - t_phase:.2f}",
+          card=smi("name,power.limit").replace(" ", "_"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1974,6 +2141,13 @@ def main() -> int:
 
     # 16. LM training in float32: the card against the CPU
     lm_train_exact_phase(dev)
+
+    # 17. the dry run: smoke cells and a production cell, counted
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun_phase(pathlib.Path(tmp))
+
+    # 18. a train step on a 1x1 mesh, bit-identical to the unsharded one
+    lm_train_mesh_phase(dev)
 
     report = []
     for name, (source, replaces) in KERNELS.items():

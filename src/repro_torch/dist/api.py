@@ -10,9 +10,9 @@ ambient mesh is a ``torch.distributed.device_mesh.DeviceMesh``.
 Model code never imports a mesh directly.  It calls ``constrain(x,
 ...)`` with LOGICAL axis names ("batch", "model", None); with no active
 mesh the call returns ``x`` unchanged, which is what lets the same model
-run on one device.  Laying a tensor out over a mesh is the job of the
-sharding layer, which the port does not have yet: under an active mesh
-``constrain`` raises instead of silently leaving ``x`` where it is.
+run on one device.  Under an active mesh ``x`` is a DTensor, and
+``constrain`` redistributes it to the layout the names give (the
+reference's ``with_sharding_constraint``).
 
 Options ("seq_parallel", "moe_ep", "moe_gather_w", "moe_groups",
 "dp_all") are scoped, thread-local flags read by model code via
@@ -28,9 +28,12 @@ import time
 import warnings
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 
 from .. import obs
 from ..io.stream import open_batches
+from .sharding import P, Sharding
 
 _STATE = threading.local()
 
@@ -74,6 +77,20 @@ def active_mesh(mesh):
         _STATE.mesh = prev
 
 
+def ambient():
+    """This thread's current mesh and options, as a function giving a
+    context manager that enters them again wherever it is used: for work
+    that runs later on another thread, as autograd's recomputation of a
+    checkpointed block does on the card's backward thread."""
+    mesh, opts = current_mesh(), dict(_opts())
+
+    @contextlib.contextmanager
+    def enter():
+        with active_mesh(mesh), options(**opts):
+            yield
+    return enter
+
+
 def batch_mesh_axes(mesh) -> tuple[str, ...]:
     """Mesh axes the global batch is sharded over.  Normally the pure-DP
     axes; with the ``dp_all`` option every mesh axis acts data-parallel."""
@@ -83,21 +100,126 @@ def batch_mesh_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in names)
 
 
+def _mesh_spec(mesh, axes) -> P:
+    """The partition spec of logical axis names on ``mesh``: ``"batch"``
+    maps to the mesh's data-parallel axes, a mesh axis name maps to
+    itself, anything else (``None``) to a replicated dim.  A mesh axis
+    shards one dim at most: the first that names it (with ``dp_all``
+    "batch" names them all)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    used: set = set()
+    spec = []
+    for a in axes:
+        cand = batch_mesh_axes(mesh) if a == "batch" else (a,)
+        got = tuple(c for c in cand if c in names and c not in used)
+        used.update(got)
+        spec.append(got if got else None)
+    return P(*spec)
+
+
+def _placements(mesh, axes) -> tuple:
+    return Sharding(mesh, _mesh_spec(mesh, axes)).placements
+
+
+def _need_dtensor(x, what: str):
+    if not isinstance(x, DTensor):
+        raise TypeError(
+            f"{what} under an active mesh needs a DTensor, got "
+            f"{type(x).__name__}: place the step's inputs with "
+            f"dist.sharding.distribute")
+
+
 def constrain(x, *axes):
     """Sharding constraint by logical axis name per tensor dim.
 
-    Returns ``x`` unchanged without an active mesh, as the reference
-    does.  Under an active mesh it raises ``NotImplementedError``: the
-    layout of a tensor over a ``DeviceMesh`` belongs to the sharding
-    layer (``dist/sharding.py``), which the port does not have yet.
+    ``"batch"`` maps to the mesh's data-parallel axes, a mesh axis name
+    maps to itself, anything else (``None``) leaves the dim replicated.
+    Returns ``x`` itself without an active mesh, as the reference does.
+    Under one, ``x`` must be a DTensor (a sharded step's inputs come in
+    as DTensors, and so does everything computed from them); it is
+    redistributed to those placements.  A plain tensor raises
+    ``TypeError``.
     """
     mesh = current_mesh()
     if mesh is None:
         return x
-    raise NotImplementedError(
-        f"constrain{axes!r} under an active mesh "
-        f"{tuple(mesh.mesh_dim_names or ())!r}: sharding over a DeviceMesh "
-        f"needs the sharding layer (dist/sharding.py), not ported yet")
+    _need_dtensor(x, f"constrain{axes!r}")
+    return x.redistribute(mesh, _placements(mesh, axes))
+
+
+def replicated(t, like):
+    """``t``, a tensor every rank computes alike (an ``arange``, a mask,
+    a rotary table), as a replicated DTensor on ``like``'s mesh when
+    ``like`` is a DTensor; otherwise ``t`` itself.  Nothing moves."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def along(t, x, dim: int):
+    """``t``, a 1-D tensor every rank computes alike of ``x.shape[dim]``
+    entries (an ``arange`` over that dim), laid out as ``x``'s ``dim``
+    is when ``x`` is a DTensor: sharded where that dim is, whole
+    elsewhere.  Each rank slices its part; nothing moves.  Without a
+    DTensor ``t`` itself."""
+    if not isinstance(x, DTensor):
+        return t
+    d = dim % x.ndim
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == d else Replicate()
+          for p in x.placements]
+    return replicated(t, x).redistribute(x.device_mesh, pl)
+
+
+def local_apply(fn, args, in_axes, out_axes):
+    """``fn(*args)``; under an active mesh, ``fn`` runs on each rank's
+    local shards (``local_map``'s contract, written out here: the
+    releases of torch this runs on differ in how ``local_map`` behaves
+    when activation checkpointing recomputes it).
+
+    ``in_axes`` gives, per argument, the logical axis names of the layout
+    ``fn`` needs (as ``constrain`` takes them; ``None`` for an argument
+    that is not a tensor): each DTensor argument is redistributed to it
+    first.  ``out_axes`` gives the layout of each output (a list for
+    several outputs).  ``fn`` must compute on those shards what it
+    computes on the whole: a dim sharded on the way in is one ``fn``
+    treats independently, as a batch or a head.  Under a mesh every
+    tensor argument must be a DTensor; a plain one raises ``TypeError``
+    rather than pass through with its global shape.
+
+    Gradients: an argument whole over a mesh dim that another argument
+    is split over (a weight beside a batch shard) gets, on each rank, the
+    part of its gradient that rank's shard gives: its gradient is
+    ``Partial`` over that dim, summed where it is laid out again.
+    """
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(*args)
+    ins = tuple(None if ax is None else _placements(mesh, ax)
+                for ax in in_axes)
+    split = [any(isinstance(pl[m], Shard) for pl in ins if pl is not None)
+             for m in range(mesh.ndim)]
+    local = []
+    for a, pl in zip(args, ins):
+        if pl is None:
+            local.append(a)
+            continue
+        _need_dtensor(a, f"local_apply({getattr(fn, '__name__', fn)})")
+        if tuple(a.placements) != pl:
+            a = a.redistribute(mesh, pl)
+        t = a.to_local(grad_placements=tuple(
+            Partial() if split[m] and isinstance(p, Replicate) else p
+            for m, p in enumerate(pl)))
+        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor)
+                     else t)
+    out = fn(*local)
+    if isinstance(out_axes, list):
+        return tuple(DTensor.from_local(o, mesh, _placements(mesh, ax),
+                                        run_check=False)
+                     for o, ax in zip(out, out_axes, strict=True))
+    return DTensor.from_local(out, mesh, _placements(mesh, out_axes),
+                              run_check=False)
 
 
 def read_shard(spec: str | None = None) -> tuple[int, int]:

@@ -12,11 +12,21 @@ reference's keys only.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..models import lm
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import tree_leaves, tree_map
+
+
+def _laid_out_as(g, p):
+    """A gradient laid out as its parameter (a sharded step reduces a
+    DTensor gradient to its parameter's placements here, where the
+    optimizer meets the two)."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def loss_and_grads(params, cfg: ArchConfig, batch, *, q_block=512,
@@ -30,7 +40,7 @@ def loss_and_grads(params, cfg: ArchConfig, batch, *, q_block=512,
         loss = lm.loss_fn(live, cfg, batch, q_block=q_block,
                           kv_block=kv_block)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(torch.zeros_like(p) if g is None else g
+    it = iter(torch.zeros_like(p) if g is None else _laid_out_as(g, p)
               for p, g in zip(leaves, grads))
     return loss.detach(), tree_map(lambda _: next(it), live)
 

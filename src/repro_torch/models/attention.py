@@ -12,7 +12,9 @@ execute, as in the reference.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from ..dist.api import along, current_mesh, local_apply, replicated
 from .layers import apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -45,9 +47,8 @@ def init_attn(gen, cfg, dtype, device, lead=()):
     return p, ax
 
 
-def _project_qkv(p, x, cfg, positions):
-    B, S, d = x.shape
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _project(p, x, cfg):
+    """The flat q, k, v projections (B, S, heads x hd)."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -55,9 +56,18 @@ def _project_qkv(p, x, cfg, positions):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KH, hd)
-    v = v.reshape(B, S, KH, hd)
+    return q, k, v
+
+
+def _heads(q, k, v, positions, cfg):
+    """Flat projections -> (B, S, heads, hd), q and k rotated.  The head
+    counts come from the shapes, so a rank holding some of the heads
+    splits and rotates those."""
+    B, S = q.shape[:2]
+    hd = cfg.head_dim
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.rope == "mrope":
         q = apply_mrope(q, positions)
         k = apply_mrope(k, positions)
@@ -66,6 +76,21 @@ def _project_qkv(p, x, cfg, positions):
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def _head_axis(cfg, mesh) -> str | None:
+    """``"model"`` when the heads split evenly over the mesh's model
+    axis (each rank then attends with its own query and KV heads, the
+    tensor-parallel layout), else None (every rank attends with all)."""
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) \
+        if mesh is not None else 1
+    if m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        return "model"
+    return None
+
+
+def _pos_axes(positions):
+    return ("batch", None) if positions.ndim == 2 else (None, "batch", None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -113,13 +138,56 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def attn_forward(p, x, cfg, positions, *, q_block=512, kv_block=512):
-    """Training / prefill attention (no cache). Returns (out, (k, v))."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    o = flash_attention(q, k, v, causal=True,
-                        q_block=q_block, kv_block=kv_block)
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
-    return o, (k, v)
+    """Training / prefill attention (no cache). Returns (out, (k, v)).
+
+    Under a mesh the rotations and the attention core run on each rank's
+    batch shard and, where ``_head_axis`` allows, its heads."""
+    def core(q, k, v, positions):
+        q, k, v = _heads(q, k, v, positions, cfg)
+        o = flash_attention(q, k, v, causal=True,
+                            q_block=q_block, kv_block=kv_block)
+        B, S, H, D = o.shape
+        return o.reshape(B, S, H * D), k, v
+
+    h = _head_axis(cfg, current_mesh())
+    flat = ("batch", None, h)
+    o, k, v = local_apply(core, (*_project(p, x, cfg), positions),
+                          [flat, flat, flat, _pos_axes(positions)],
+                          [flat, ("batch", None, h, None),
+                           ("batch", None, h, None)])
+    return o @ p["wo"], (k, v)
+
+
+def _decode_core(q, cache_k, cache_v, pos: int, dtype):
+    """Softmax of one query over the static cache, with the unclamped
+    ``arange(Smax) <= pos`` mask."""
+    B = q.shape[0]
+    H, hd = q.shape[2], q.shape[3]
+    KH = cache_k.shape[2]
+    G = H // KH
+    Smax = cache_k.shape[1]
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.reshape(B, 1, KH, G, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), cache_k.float()) * scale
+    valid = torch.arange(Smax, device=q.device) <= pos
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgs,bskd->bqkgd", w, cache_v.float())
+    return o.reshape(B, 1, H * hd).to(dtype)
+
+
+def _write_at(cache, at: int, new):
+    """``cache[:, at] = new[:, 0]``, in place.  A DTensor cache whose
+    sequence dim is sharded (``kv_seq_model``) is written through a mask
+    over that dim, each rank into its own slice: indexing a sharded dim
+    would write into a gathered copy."""
+    if isinstance(cache, DTensor) and any(
+            isinstance(pl, Shard) and pl.dim == 1 for pl in cache.placements):
+        hit = along(torch.arange(cache.shape[1], device=cache.device) == at,
+                    cache, 1)
+        cache.copy_(torch.where(hit[None, :, None, None], new, cache))
+    else:
+        cache[:, at] = new[:, 0]
 
 
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
@@ -130,25 +198,24 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
     ``jax.lax.dynamic_update_slice_in_dim`` does, the start is clamped
     so that the update fits: a ``pos >= Smax`` writes at ``Smax - 1``.
     Softmax runs over the full static cache with the unclamped
-    ``arange(Smax) <= pos`` mask.
+    ``arange(Smax) <= pos`` mask.  Under a mesh each rank attends over
+    its batch shard of the cache with every head.
     """
     B = x.shape[0]
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KH
     shape = (B, 1) if cfg.rope != "mrope" else (3, B, 1)
-    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    positions = replicated(torch.full(shape, pos, dtype=torch.int32,
+                                      device=x.device), x)
+    flat = ("batch", None, None)
+    heads = ("batch", None, None, None)
+    q, k_new, v_new = local_apply(
+        lambda q, k, v, pos_: _heads(q, k, v, pos_, cfg),
+        (*_project(p, x, cfg), positions),
+        [flat, flat, flat, _pos_axes(positions)], [heads, heads, heads])
     Smax = cache_k.shape[1]
     at = min(max(int(pos), 0), Smax - 1)
-    cache_k[:, at] = k_new[:, 0]
-    cache_v[:, at] = v_new[:, 0]
-    scale = 1.0 / (hd ** 0.5)
-    qg = q.reshape(B, 1, KH, G, hd)
-    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), cache_k.float()) * scale
-    valid = torch.arange(Smax, device=x.device) <= pos
-    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqkgs,bskd->bqkgd", w, cache_v.float())
-    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    _write_at(cache_k, at, k_new)
+    _write_at(cache_v, at, v_new)
+    o = local_apply(lambda q, ck, cv: _decode_core(q, ck, cv, pos, x.dtype),
+                    (q, cache_k, cache_v), [heads, heads, heads], flat)
     o = o @ p["wo"]
     return o, cache_k, cache_v

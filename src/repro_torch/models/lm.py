@@ -21,12 +21,14 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..api import resolve_device
 from ..configs.base import ArchConfig
-from ..dist.api import constrain, get_option
+from ..dist.api import (ambient, along, constrain, get_option,
+                        local_apply, replicated)
 from .attention import attn_decode, attn_forward, init_attn
 from .layers import dense_init, rms_norm, sq_relu_ffn, swiglu
 from .moe import init_moe, moe_ffn
@@ -75,7 +77,15 @@ def _ckpt(f, cfg):
     def run(*args):
         if not torch.is_grad_enabled():
             return f(*args)
-        return checkpoint(f, *args, use_reentrant=False, **kw)
+        # the recomputation runs in the backward pass, on the card on
+        # autograd's own thread: it must see the forward's mesh and
+        # options, which are this thread's
+        scope = ambient()
+
+        def g(*a):
+            with scope():
+                return f(*a)
+        return checkpoint(g, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -221,19 +231,31 @@ def _block_fwd(p, x, cfg, positions, q_block, kv_block):
     x = _cx(x)
     h, _ = attn_forward(p["attn"], rms_norm(x, p["ln1"]), cfg, positions,
                         q_block=q_block, kv_block=kv_block)
-    x = x + h
+    # each branch laid out as the residual before it is added: under a
+    # mesh its partial sums over the model axis are reduced here, and
+    # so are their gradients (else DTensor keeps the sum partial and
+    # runs the next products on whole weights)
+    x = x + _cx(h)
     y = _ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg)
-    return _cx(x + y)
+    return _cx(x + _cx(y))
 
 
 def _ssm_block_fwd(p, x, cfg):
     x = _cx(x)
     h, st, conv = ssd_forward(p["ssm"], rms_norm(x, p["ln"]), cfg)
-    return _cx(x + h), st, conv
+    return _cx(x + _cx(h)), st, conv
 
 
 def _as_tensor(a, device, dtype=None):
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _lookup(table, toks, cfg):
+    if cfg.input_kind == "codes":
+        outs = [table[q][toks[..., q]]                 # toks (B, S, nq)
+                for q in range(cfg.n_codebooks)]
+        return sum(outs)
+    return table[toks]
 
 
 def _embed(params, cfg, batch):
@@ -241,20 +263,23 @@ def _embed(params, cfg, batch):
     if cfg.input_kind == "embeds":
         return _as_tensor(batch["embeds"], dev)
     toks = _as_tensor(batch["tokens"], dev).long()
-    if cfg.input_kind == "codes":
-        outs = [params["embed"][q][toks[..., q]]       # toks (B, S, nq)
-                for q in range(cfg.n_codebooks)]
-        return sum(outs)
-    return params["embed"][toks]
+    # under a mesh: each rank looks its batch shard up in the whole table
+    # (DTensor lays an index into a sharded table out as a scatter of its
+    # gradient, which not every torch release can)
+    tok_axes = ("batch",) + (None,) * (toks.ndim - 1)
+    return local_apply(lambda t, i: _lookup(t, i, cfg),
+                       (params["embed"], toks),
+                       [(None,) * params["embed"].ndim, tok_axes],
+                       tok_axes + (None,))
 
 
-def _positions(cfg, batch, B, S, device):
-    ar = torch.arange(S, dtype=torch.int32, device=device)
-    if cfg.rope == "mrope":
-        if "positions" in batch:
-            return _as_tensor(batch["positions"], device)
-        return ar.expand(3, B, S)
-    return ar.expand(B, S)
+def _positions(cfg, batch, x):
+    B, S, _ = x.shape
+    if cfg.rope == "mrope" and "positions" in batch:
+        return _as_tensor(batch["positions"], x.device)
+    ar = torch.arange(S, dtype=torch.int32, device=x.device)
+    return replicated(ar.expand(3, B, S) if cfg.rope == "mrope"
+                      else ar.expand(B, S), x)
 
 
 def _unstack(tree) -> list:
@@ -279,8 +304,7 @@ def forward(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512,
             return_hidden: bool = False):
     """Full-sequence forward -> logits (B, S, V[, nq])."""
     x = _embed(params, cfg, batch)
-    B, S, _ = x.shape
-    positions = _positions(cfg, batch, B, S, x.device)
+    positions = _positions(cfg, batch, x)
 
     if cfg.family == "ssm":
         f = _ckpt(lambda xc, p: _ssm_block_fwd(p, xc, cfg)[0], cfg)
@@ -309,6 +333,11 @@ def forward(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512,
 
 def apply_head(params, cfg: ArchConfig, x):
     if cfg.input_kind == "codes":
+        if isinstance(x, DTensor):
+            # one product a codebook: DTensor cannot lay the vocab-
+            # sharded head through the einsum's reshaped batched product
+            return torch.stack([x @ params["head"][q]
+                                for q in range(cfg.n_codebooks)], dim=-2)
         return torch.einsum("...d,qdv->...qv", x, params["head"])
     return x @ params["head"]
 
@@ -319,15 +348,20 @@ def loss_fn(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512):
     (``cfg.vocab_real``) are masked out of the logsumexp."""
     logits = forward(params, cfg, batch, q_block=q_block, kv_block=kv_block)
     labels = _as_tensor(batch["labels"], logits.device)
-    lf = logits.float()
-    iota_v = torch.arange(lf.shape[-1], device=lf.device)
+    # under a mesh the logits stay sharded by batch and vocab, and each
+    # reduction over the vocab is laid out by batch, gradients included
+    tok_axes = ("batch",) + (None,) * (logits.ndim - 2)
+    lf = constrain(logits.float(), *tok_axes, "model")
+    iota_v = along(torch.arange(lf.shape[-1], device=lf.device), lf, -1)
     if getattr(cfg, "vocab_real", 0) and cfg.vocab_real < cfg.vocab:
         lf = torch.where(iota_v < cfg.vocab_real, lf, -1e30)
     m = lf.amax(dim=-1)
-    lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+    lse = m + torch.log(constrain(torch.sum(torch.exp(lf - m[..., None]),
+                                            dim=-1), *tok_axes))
     is_gold = iota_v == labels[..., None].long()
-    gold = torch.sum(torch.where(is_gold, lf, 0.0), dim=-1)
-    return torch.mean(lse - gold)
+    gold = constrain(torch.sum(torch.where(is_gold, lf, 0.0), dim=-1),
+                     *tok_axes)
+    return torch.mean(constrain(lse - gold, *tok_axes))
 
 
 # ---------------------------------------------------------------------

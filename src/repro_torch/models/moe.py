@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..dist.api import constrain, get_option
+from ..dist.api import constrain, get_option, local_apply
 from .layers import dense_init, silu
 
 
@@ -57,16 +57,12 @@ def moe_ffn(p, x, cfg, capacity_factor: float = 1.25):
     return _moe_dispatch(p, x, cfg, capacity_factor)
 
 
-def _moe_grouped(p, x, cfg, capacity_factor: float, G: int):
-    """GShard grouped dispatch with an EXPLICIT group axis."""
-    T, d = x.shape
-    E, k = cfg.moe_experts, cfg.moe_top_k
-    Tg = T // G
-    C = max(int(Tg * k * capacity_factor / E), 1)
-    dev = x.device
-    xg = constrain(x.reshape(G, Tg, d), "batch", None, None)
-
-    logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
+def _route_grouped(xg, router, E: int, k: int, C: int):
+    """Routing and dispatch of each group of ``xg`` (G, Tg, d): the
+    (G, E, C, d) expert buffer and what ``_combine_grouped`` needs."""
+    G, Tg, d = xg.shape
+    dev = xg.device
+    logits = torch.einsum("gtd,de->gte", xg.float(), router)
     topv, topi = _top_k(logits, k)                          # (G,Tg,k)
     gates = torch.softmax(topv, dim=-1)
     N = Tg * k
@@ -89,8 +85,37 @@ def _moe_grouped(p, x, cfg, capacity_factor: float, G: int):
     contrib = torch.where(keep[..., None],
                           torch.gather(xg, 1, flat_t[..., None].expand(
                               G, N, d)), 0)
-    buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=dev)
-    buf.index_put_((gi, e_idx, r_idx), contrib.to(x.dtype), accumulate=True)
+    buf = torch.zeros((G, E, C, d), dtype=xg.dtype, device=dev)
+    buf.index_put_((gi, e_idx, r_idx), contrib.to(xg.dtype), accumulate=True)
+    return buf, e_idx, r_idx, keep, flat_t, flat_g
+
+
+def _combine_grouped(y, e_idx, r_idx, keep, flat_t, flat_g, Tg: int):
+    """Each group's expert outputs gathered back to its tokens, gate
+    weighted, summed in float32."""
+    G = e_idx.shape[0]
+    d = y.shape[-1]
+    gi = torch.arange(G, device=y.device)[:, None]
+    out_flat = y[gi, e_idx, r_idx]                          # (G,N,d)
+    out_flat = torch.where(keep[..., None], out_flat, 0)
+    out_flat = out_flat.float() * flat_g[..., None]
+    out = torch.zeros((G, Tg, d), dtype=torch.float32, device=y.device)
+    out.index_put_((gi, flat_t), out_flat, accumulate=True)
+    return out.to(y.dtype)
+
+
+def _moe_grouped(p, x, cfg, capacity_factor: float, G: int):
+    """GShard grouped dispatch with an EXPLICIT group axis: under a mesh
+    each rank routes its own groups."""
+    T, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    Tg = T // G
+    C = max(int(Tg * k * capacity_factor / E), 1)
+    xg = constrain(x.reshape(G, Tg, d), "batch", None, None)
+    g2, g3 = ("batch", None), ("batch", None, None)
+    buf, e_idx, r_idx, keep, flat_t, flat_g = local_apply(
+        lambda xg, r: _route_grouped(xg, r, E, k, C), (xg, p["router"]),
+        [g3, (None, None)], [g3 + (None,), g2, g2, g2, g2, g2])
     if get_option("moe_ep"):
         buf = constrain(buf, None, "model", None, None)
     else:
@@ -107,22 +132,19 @@ def _moe_grouped(p, x, cfg, capacity_factor: float, G: int):
         y = constrain(y, None, "model", None, None)
     else:
         y = constrain(y, "batch", None, None, None)
-    out_flat = y[gi, e_idx, r_idx]                          # (G,N,d)
-    out_flat = torch.where(keep[..., None], out_flat, 0)
-    out_flat = out_flat.float() * flat_g[..., None]
-    out = torch.zeros((G, Tg, d), dtype=torch.float32, device=dev)
-    out.index_put_((gi, flat_t), out_flat, accumulate=True)
-    out = constrain(out.to(x.dtype), "batch", None, None)
+    out = local_apply(lambda *a: _combine_grouped(*a, Tg),
+                      (y, e_idx, r_idx, keep, flat_t, flat_g),
+                      [g3 + (None,), g2, g2, g2, g2, g2], g3)
+    out = constrain(out, "batch", None, None)
     return out.reshape(T, d)
 
 
-def _moe_dispatch(p, x, cfg, capacity_factor: float = 1.25):
+def _route(x, router, E: int, k: int, C: int):
+    """Routing and dispatch of the tokens ``x`` (T, d): the (E, C, d)
+    expert buffer and what ``_combine`` needs."""
     T, d = x.shape
-    E, k = cfg.moe_experts, cfg.moe_top_k
-    C = max(int(T * k * capacity_factor / E), 1)
     dev = x.device
-
-    logits = x.float() @ p["router"]
+    logits = x.float() @ router
     topv, topi = _top_k(logits, k)                          # (T, k)
     gates = torch.softmax(topv, dim=-1)                     # (T, k)
 
@@ -144,6 +166,31 @@ def _moe_dispatch(p, x, cfg, capacity_factor: float = 1.25):
     r_idx = torch.where(keep, rank, 0).long()
     contrib = torch.where(keep[:, None], x[flat_t], 0)
     buf.index_put_((e_idx, r_idx), contrib.to(x.dtype), accumulate=True)
+    return buf, e_idx, r_idx, keep, flat_t, flat_g
+
+
+def _combine(y, e_idx, r_idx, keep, flat_t, flat_g, T: int):
+    """Expert outputs gathered back to their tokens with gate weights;
+    the segment sum runs in float32."""
+    out_flat = y[e_idx, r_idx]                              # (T*k, d)
+    out_flat = torch.where(keep[:, None], out_flat, 0)
+    out_flat = out_flat.float() * flat_g[:, None]
+    out = torch.zeros((T, y.shape[-1]), dtype=torch.float32, device=y.device)
+    out.index_add_(0, flat_t, out_flat)
+    return out.to(y.dtype)
+
+
+def _moe_dispatch(p, x, cfg, capacity_factor: float = 1.25):
+    """Under a mesh the routing and the combine run on every rank over
+    all tokens (the capacity is the global batch's), and the expert
+    products on DTensors."""
+    T, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = max(int(T * k * capacity_factor / E), 1)
+    r1, r2, r3 = (None,), (None, None), (None, None, None)
+    buf, e_idx, r_idx, keep, flat_t, flat_g = local_apply(
+        lambda x, r: _route(x, r, E, k, C), (x, p["router"]), [r2, r2],
+        [r3, r1, r1, r1, r1, r1])
     if get_option("moe_ep"):
         buf = constrain(buf, "model", None, None)
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
@@ -157,13 +204,9 @@ def _moe_dispatch(p, x, cfg, capacity_factor: float = 1.25):
     y = torch.bmm(silu(g) * u, wd)
     if get_option("moe_ep"):
         y = constrain(y, "model", None, None)
-    # gather back with gate weights; the segment sum runs in float32
-    out_flat = y[e_idx, r_idx]                              # (T*k, d)
-    out_flat = torch.where(keep[:, None], out_flat, 0)
-    out_flat = out_flat.float() * flat_g[:, None]
-    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
-    out.index_add_(0, flat_t, out_flat)
-    return out.to(x.dtype)
+    return local_apply(lambda *a: _combine(*a, T),
+                       (y, e_idx, r_idx, keep, flat_t, flat_g),
+                       [r3, r1, r1, r1, r1, r1], r2)
 
 
 def aux_load_balance_loss(p, x, cfg):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.api import local_apply
 from .layers import dense_init, silu
 
 
@@ -76,21 +77,32 @@ def _gated_norm(y, z, norm_w):
     return y * torch.rsqrt(var + 1e-5) * norm_w.float()
 
 
-def ssd_forward(p, x, cfg, chunk: int = 128):
-    """x (B, S, d) -> (B, S, d); returns (out, final_state, conv_tail)."""
-    Bsz, S, d = x.shape
-    d_in = cfg.ssm_expand * d
+#: the SSM block's parameters that its core takes, in this order
+_CORE = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm_w")
+
+
+def _core_args(p):
+    """The core's parameters, and their layout under a mesh: whole on
+    every rank."""
+    return tuple(p[n] for n in _CORE), [(None,) * p[n].ndim for n in _CORE]
+
+
+def _ssd_core(z_all, conv_w, conv_b, dt_bias, A_log, D, norm_w, cfg,
+              chunk, dtype):
+    """From the input projection to the gated norm: (y, final_state,
+    conv_tail), y in ``dtype``."""
+    Bsz, S, _ = z_all.shape
+    d_in = cfg.ssm_expand * cfg.d_model
     hd = cfg.ssm_headdim
     H = d_in // hd
     G, N = cfg.ssm_groups, cfg.ssm_state
-    z_all = x @ p["in_proj"]
     z, xb, Bv, Cv, dt = _split_proj(z_all, cfg)
     conv_in = torch.cat([xb, Bv, Cv], dim=-1)
-    conv_out = silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    conv_out = silu(_causal_conv(conv_in, conv_w, conv_b))
     xb, Bv, Cv = torch.split(conv_out, [d_in, G * N, G * N], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,S,H)
-    A = -torch.exp(p["A_log"])                                    # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                        # (B,S,H)
+    A = -torch.exp(A_log)                                         # (H,)
     xh = xb.reshape(Bsz, S, H, hd).float()
     rep = H // G
     Bh = Bv.reshape(Bsz, S, G, N).float().repeat_interleave(rep, dim=2)
@@ -109,7 +121,7 @@ def ssd_forward(p, x, cfg, chunk: int = 128):
     # intra-chunk (quadratic within chunk)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Qi,Qj,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))
+                                   device=z_all.device))
     # exp after the mask: above the diagonal diff > 0 overflows exp, and
     # where's backward would multiply that inf by 0 (NaN gradients)
     L = torch.exp(torch.where(causal[None, None, :, :, None], diff,
@@ -134,30 +146,42 @@ def ssd_forward(p, x, cfg, chunk: int = 128):
     y_inter = torch.einsum("bcihn,bchnp,bcih->bcihp",
                            Cc, st_in, torch.exp(cum))
     y = (y_intra + y_inter).reshape(Bsz, S, H, hd)
-    y = y + p["D"][None, None, :, None] * xh
-    y = _gated_norm(y.reshape(Bsz, S, d_in), z, p["norm_w"])
-    out = y.to(x.dtype) @ p["out_proj"]
+    y = y + D[None, None, :, None] * xh
+    y = _gated_norm(y.reshape(Bsz, S, d_in), z, norm_w)
     conv_tail = conv_in[:, -(cfg.ssm_conv - 1):, :]               # (B,K-1,ch)
-    return out, st_scan[-1], conv_tail
+    return y.to(dtype), st_scan[-1], conv_tail
 
 
-def ssd_decode(p, x, state, conv_buf, cfg):
-    """One-token decode. x (B,1,d); state (B,H,N,P); conv_buf (B,K-1,ch).
-    Returns (out, new_state, new_conv_buf); the inputs are not written."""
-    Bsz, _, d = x.shape
-    d_in = cfg.ssm_expand * d
+def ssd_forward(p, x, cfg, chunk: int = 128):
+    """x (B, S, d) -> (B, S, d); returns (out, final_state, conv_tail).
+    Under a mesh the core runs on each rank's batch shard with the whole
+    inner width (the projection packs z, x, B, C and dt in one dim)."""
+    z_all = x @ p["in_proj"]
+    args, axes = _core_args(p)
+    b3 = ("batch", None, None)
+    y, st, conv_tail = local_apply(
+        lambda z, *a: _ssd_core(z, *a, cfg, chunk, x.dtype), (z_all, *args),
+        [b3, *axes], [b3, ("batch", None, None, None), b3])
+    return y @ p["out_proj"], st, conv_tail
+
+
+def _decode_core(z_all, state, conv_buf, conv_w, conv_b, dt_bias, A_log,
+                 D, norm_w, cfg, dtype):
+    """One token's state recurrence: (y in ``dtype``, new_state,
+    new_conv_buf)."""
+    Bsz = z_all.shape[0]
+    d_in = cfg.ssm_expand * cfg.d_model
     hd = cfg.ssm_headdim
     H = d_in // hd
     G, N = cfg.ssm_groups, cfg.ssm_state
-    z_all = x @ p["in_proj"]
     z, xb, Bv, Cv, dt = _split_proj(z_all, cfg)
     conv_in = torch.cat([xb, Bv, Cv], dim=-1)                     # (B,1,ch)
     win = torch.cat([conv_buf, conv_in], dim=1)                   # (B,K,ch)
-    conv_out = torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"]
+    conv_out = torch.einsum("bkc,kc->bc", win, conv_w) + conv_b
     conv_out = silu(conv_out)[:, None, :]
     xb, Bv, Cv = torch.split(conv_out, [d_in, G * N, G * N], dim=-1)
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])              # (B,H)
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt[:, 0].float() + dt_bias)                   # (B,H)
+    A = -torch.exp(A_log)
     xh = xb.reshape(Bsz, H, hd).float()
     Bh = Bv.reshape(Bsz, G, N).repeat_interleave(H // G, dim=1).float()
     Ch = Cv.reshape(Bsz, G, N).repeat_interleave(H // G, dim=1).float()
@@ -165,7 +189,20 @@ def ssd_decode(p, x, state, conv_buf, cfg):
     state = state * decay[..., None, None] + torch.einsum(
         "bh,bhn,bhp->bhnp", dt, Bh, xh)
     y = torch.einsum("bhn,bhnp->bhp", Ch, state)
-    y = y + p["D"][None, :, None] * xh
-    y = _gated_norm(y.reshape(Bsz, d_in), z[:, 0], p["norm_w"])
-    out = y.to(x.dtype) @ p["out_proj"]
-    return out[:, None, :], state, win[:, 1:, :]
+    y = y + D[None, :, None] * xh
+    y = _gated_norm(y.reshape(Bsz, d_in), z[:, 0], norm_w)
+    return y.to(dtype), state, win[:, 1:, :]
+
+
+def ssd_decode(p, x, state, conv_buf, cfg):
+    """One-token decode. x (B,1,d); state (B,H,N,P); conv_buf (B,K-1,ch).
+    Returns (out, new_state, new_conv_buf); the inputs are not written."""
+    z_all = x @ p["in_proj"]
+    args, axes = _core_args(p)
+    b3, b4 = ("batch", None, None), ("batch", None, None, None)
+    y, state, win = local_apply(
+        lambda z, st, cb, *a: _decode_core(z, st, cb, *a, cfg, x.dtype),
+        (z_all, state, conv_buf, *args), [b3, b4, b3, *axes],
+        [("batch", None), b4, b3])
+    out = y @ p["out_proj"]
+    return out[:, None, :], state, win

@@ -5,8 +5,10 @@
 * without a CUDA device the entry points (``Aligner``, ``align_pairs``,
   ``cli mem``, single-end and paired, ``serve.AlignmentServer``, ``cli
   serve``, and the LM's ``init_params``, ``init_cache``,
-  ``LanguageModel`` and ``python -m repro_torch.launch.serve``) raise or
-  exit non-zero at their default device instead of running on the CPU;
+  ``LanguageModel``, ``python -m repro_torch.launch.serve`` and the dry
+  run's ``run_smoke``, ``lower_cell`` and ``python -m
+  repro_torch.launch.dryrun``) raise or exit non-zero at their default
+  device instead of running on the CPU;
 * a kernel wrapper given a tensor on any device other than the CPU or a
   CUDA device raises instead of running its plain version.
 """
@@ -149,17 +151,24 @@ def test_cli_serve_without_cuda_exits_nonzero(no_cuda, tiny, capsys):
 
 def test_lm_entry_points_without_cuda_raise(no_cuda, capsys):
     from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import lm
     cfg = smoke_config("qwen1.5-0.5b")
     for call in (lambda: lm.init_params(cfg),
                  lambda: lm.init_params(cfg, device="cuda:0"),
                  lambda: lm.init_cache(cfg, 2, 8),
-                 lambda: lm.LanguageModel(cfg)):
+                 lambda: lm.LanguageModel(cfg),
+                 lambda: dryrun.run_smoke(pathlib.Path("unwritten")),
+                 lambda: dryrun.lower_cell("qwen1.5-0.5b", "train_4k",
+                                           False)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert lm_serve.main(["--smoke"]) != 0
     assert "no CUDA device" in capsys.readouterr().err
+    assert dryrun.main(["--smoke", "--out-dir", "unwritten"]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not pathlib.Path("unwritten").exists()
     # asking for the CPU explicitly is the one way to run there
     params, _ = lm.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"

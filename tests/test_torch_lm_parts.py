@@ -94,6 +94,11 @@ def test_options_nest_and_restore():
 
 
 def test_constrain_identity_without_mesh_raises_under_one():
+    """Without a mesh ``constrain`` returns the same object; under the
+    1-rank gloo mesh it redistributes a DTensor to the placements the
+    names give, and a plain tensor raises ``TypeError``."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
     x = torch.arange(6.0).reshape(2, 3)
     assert tdist.current_mesh() is None
     assert tdist.constrain(x, "batch", None) is x
@@ -102,13 +107,21 @@ def test_constrain_identity_without_mesh_raises_under_one():
                             world_size=1)
     try:
         from torch.distributed.device_mesh import init_device_mesh
-        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
         with tdist.active_mesh(mesh) as m:
             assert tdist.current_mesh() is m is mesh
             assert tdist.batch_mesh_axes(mesh) == ("data",)
             with tdist.options(dp_all=True):
-                assert tdist.batch_mesh_axes(mesh) == ("data",)
-            with pytest.raises(NotImplementedError, match="sharding"):
+                assert tdist.batch_mesh_axes(mesh) == ("data", "model")
+            xd = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+            y = tdist.constrain(xd, "batch", "model")
+            assert isinstance(y, DTensor)
+            assert y.placements == (Shard(0), Shard(1))
+            z = tdist.constrain(y, None, None)
+            assert z.placements == (Replicate(), Replicate())
+            assert torch.equal(z.full_tensor(), x)
+            with pytest.raises(TypeError, match="DTensor"):
                 tdist.constrain(x, "batch", None)
         assert tdist.current_mesh() is None
         assert tdist.constrain(x, "batch", None) is x
