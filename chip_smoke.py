@@ -157,7 +157,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import cli, kernels, obs  # noqa: E402
-from repro_torch.configs import ARCHS, get_arch, smoke_config  # noqa: E402
+from repro_torch.configs import (ARCHS, SHAPES, get_arch,  # noqa: E402
+                                 smoke_config)
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import synthetic_batch, train  # noqa: E402
@@ -255,6 +256,9 @@ LM_PARAM_SHARE = 1e-4      # the share of elements allowed over it
 DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k")
 DRYRUN_Q_BLOCK = 4096
 DRYRUN_TIMEOUT_S = 240
+#: the production cell's peak of live local bytes a chip (in the loss:
+#: five float32 logit shards, the layers' saved inputs, the arguments)
+DRYRUN_PEAK_BYTES = 16_589_204_492
 # phase 18: phase 15's shape on a 1x1 mesh over an NCCL group of one
 LM_MESH_STEPS = 3
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
@@ -1820,18 +1824,71 @@ def lm_train_exact_phase(dev) -> None:
 # phases 17-18: the dry run, and a sharded train step
 # ---------------------------------------------------------------------
 
+#: runs ``repro_torch.launch.dryrun.main`` on argv[1:] with the BWA-MEM
+#: launch counters at 0, and prints the counts the run left on a line
+#: of its own before exiting with main's code
+DRYRUN_CHILD = (
+    "import json, sys\n"
+    "from repro_torch import kernels\n"
+    "from repro_torch.launch import dryrun\n"
+    "kernels.reset_launch_counts()\n"
+    "rc = dryrun.main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(kernels.launch_counts()), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def dense_train_flops_per_chip(cfg, B: int, S: int, data: int,
+                               model: int) -> int:
+    """Hand count of the products one chip runs in a dense train step
+    (swiglu, heads and d_ff split over ``model``, the batch over
+    ``data``, every layer checkpointed, attention blocks unmasked):
+    the head's product forward and its two backward ones; each layer's
+    products forward, recomputed and their two backward ones, less the
+    recomputed down projection (a non-reentrant checkpoint stops once
+    what the backward needs is recomputed)."""
+    T = B // data * S
+    hl, fl, vl = cfg.n_heads * cfg.head_dim // model, cfg.d_ff // model, \
+        cfg.vocab // model
+    kvl = cfg.n_kv_heads * cfg.head_dim // model
+    d = cfg.d_model
+
+    def mm(m, k, n):
+        return 2 * m * k * n
+    layer_fwd = (mm(T, d, hl + 2 * kvl) + mm(T, hl, d) + mm(T, d, 2 * fl)
+                 + mm(T, fl, d) + 2 * 2 * T * S * hl)
+    return 3 * mm(T, d, vl) + cfg.n_layers * (4 * layer_fwd - mm(T, fl, d))
+
+
+def prefill_smoke_flops_per_chip() -> int:
+    """Hand count of the products one chip of the 2x2 smoke mesh runs in
+    the smoke qwen1.5-0.5b's prefill_smoke (2 layers of d 64, 4 heads and
+    2 KV heads of 16, d_ff 128, vocab 256; B 4, S 128; every (q, kv)
+    block pair): 2 sequences, half of the heads, of d_ff and of the
+    vocab, the head on the last position only."""
+    T, S, d, hl, kvl, fl, vl = 2 * 128, 128, 64, 32, 16, 64, 128
+
+    def mm(m, k, n):
+        return 2 * m * k * n
+    layer = (mm(T, d, hl + 2 * kvl) + 2 * 2 * T * S * hl + mm(T, hl, d)
+             + 3 * mm(T, d, fl))
+    return 2 * layer + mm(2, d, vl)
+
+
 def dryrun_phase(tmp: pathlib.Path) -> None:
-    """Phase 17: ``python -m repro_torch.launch.dryrun --smoke`` (5 smoke
-    cells on a 2x2 mesh of a 4-rank placeholder world) and the full-width
+    """Phase 17: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
+    2x2 mesh of a 4-rank placeholder world) and the full-width
     production cell DRYRUN_CELL on the 16x16 mesh of a 256-rank world,
-    two processes at once, fake tensors on the card; each must exit 0
-    and write its records, and each record is printed."""
+    two processes at once, fake tensors on the card; each must exit 0,
+    write its records and launch no BWA-MEM kernel (each reports the
+    counts of its own run), and each record is printed.  The production
+    cell's per-chip flops must equal ``dense_train_flops_per_chip`` and
+    its peak DRYRUN_PEAK_BYTES (the counts of torch 2.13 on the CPU), the
+    prefill smoke cell's flops ``prefill_smoke_flops_per_chip``."""
     t_phase = time.perf_counter()
-    kernels.reset_launch_counts()
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p])}
-    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    base = [sys.executable, "-c", DRYRUN_CHILD]
     runs = {"smoke": base + ["--smoke", "--out-dir", str(tmp / "smoke")],
             "cell": base + ["--arch", DRYRUN_CELL[0], "--shape",
                             DRYRUN_CELL[1], "--q-block", str(DRYRUN_Q_BLOCK),
@@ -1840,7 +1897,7 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
              for k, argv in runs.items()}
-    walls = {}
+    walls, launches = {}, {}
     for k, proc in procs.items():
         try:
             out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
@@ -1852,6 +1909,14 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
         if proc.returncode != 0:
             raise AssertionError(f"dryrun {k} exited {proc.returncode}:\n"
                                  + out[-3000:])
+        got = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")]
+        if len(got) != 1:
+            raise AssertionError(f"dryrun {k} reported no launch counts:\n"
+                                 + out[-3000:])
+        launches[k] = json.loads(got[0][len("LAUNCHES "):])
+        if not launches[k] or any(launches[k].values()):
+            raise AssertionError(f"dryrun {k} launched BWA-MEM kernels: "
+                                 f"{launches[k]}")
     recs = [json.loads(f.read_text())
             for d in ("smoke", "cell") for f in sorted((tmp / d).glob("*.json"))]
     if len(recs) != 6:
@@ -1876,9 +1941,27 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
               dominant=rf["dominant"],
               argument_bytes=r["memory"]["argument_bytes"],
               peak_bytes=r["memory"]["peak_bytes"])
-    require_no_launches("[dryrun]")
+    cell = recs[-1]
+    cfg = get_arch(DRYRUN_CELL[0])
+    shape = SHAPES[DRYRUN_CELL[1]]
+    want = dense_train_flops_per_chip(cfg, shape.global_batch,
+                                      shape.seq_len, 16, 16)
+    if cell["cost"]["flops"] != want:
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: {cell['cost']['flops']}"
+                             f" flops a chip, the hand count is {want}")
+    if cell["memory"]["peak_bytes"] != DRYRUN_PEAK_BYTES:
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: peak "
+                             f"{cell['memory']['peak_bytes']} bytes a chip, "
+                             f"not {DRYRUN_PEAK_BYTES}")
+    prefill = next(r for r in recs if r["shape"] == "prefill_smoke")
+    want_prefill = prefill_smoke_flops_per_chip()
+    if prefill["cost"]["flops"] != want_prefill:
+        raise AssertionError(f"dryrun prefill_smoke: "
+                             f"{prefill['cost']['flops']} flops a chip, the "
+                             f"hand count is {want_prefill}")
     phase("dryrun", cells=len(recs), smoke_wall_s=f"{walls['smoke']:.2f}",
-          cell_wall_s=f"{walls['cell']:.2f}",
+          cell_wall_s=f"{walls['cell']:.2f}", hand_count_flops=want,
+          launches=json.dumps(launches, separators=(",", ":")),
           q_block=DRYRUN_Q_BLOCK, hardware=json.dumps(recs[-1]["hardware"],
                                                       separators=(",", ":")),
           wall_s=f"{time.perf_counter() - t_phase:.2f}")

@@ -33,7 +33,7 @@ from torch.distributed._functional_collectives import AsyncCollectiveTensor
 
 from .. import obs
 from ..io.stream import open_batches
-from .sharding import P, Sharding
+from .sharding import P, Sharding, require_even
 
 _STATE = threading.local()
 
@@ -137,14 +137,57 @@ def constrain(x, *axes):
     Returns ``x`` itself without an active mesh, as the reference does.
     Under one, ``x`` must be a DTensor (a sharded step's inputs come in
     as DTensors, and so does everything computed from them); it is
-    redistributed to those placements.  A plain tensor raises
-    ``TypeError``.
+    redistributed to those placements, and so is its gradient, as
+    ``with_sharding_constraint`` constrains the cotangent too (DTensor's
+    own ``redistribute`` lays a gradient out as its input was, which
+    leaves a partial sum partial and lets the products before it run
+    whole).  A plain tensor raises ``TypeError``.
     """
     mesh = current_mesh()
     if mesh is None:
         return x
     _need_dtensor(x, f"constrain{axes!r}")
-    return x.redistribute(mesh, _placements(mesh, axes))
+    return _Constrain.apply(x, mesh, _placements(mesh, axes))
+
+
+class _Constrain(torch.autograd.Function):
+    """``redistribute`` forward, and backward to the same placements."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+def gathered(tree):
+    """The weights of ``tree`` (a dict of tensors, nested or not, or one
+    tensor) whole over the mesh axes the batch is split over: FSDP's
+    all-gather ahead of the products, whose gradient is reduce-scattered
+    back.  A tensor dim that is also split over another mesh axis (the
+    ``tp2d`` layout) keeps its layout.  Without a mesh ``tree`` itself.
+
+    Each product then meets a weight laid out for tensor parallelism
+    only.  Left to DTensor, a product whose weight is also split over
+    the batch's axes is laid out by its release's choice (torch 2.11 and
+    2.13 split the MoE experts' products differently)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    _need_dtensor(tree, "gathered")
+    names = tuple(mesh.mesh_dim_names)
+    baxes = batch_mesh_axes(mesh)
+    pl = tuple(tree.placements)
+    keep = {p.dim for m, p in enumerate(pl)
+            if isinstance(p, Shard) and names[m] not in baxes}
+    want = tuple(Replicate() if isinstance(p, Shard) and names[m] in baxes
+                 and p.dim not in keep else p for m, p in enumerate(pl))
+    return tree if want == pl else tree.redistribute(mesh, want)
 
 
 def replicated(t, like):
@@ -186,7 +229,9 @@ def local_apply(fn, args, in_axes, out_axes):
     computes on the whole: a dim sharded on the way in is one ``fn``
     treats independently, as a batch or a head.  Under a mesh every
     tensor argument must be a DTensor; a plain one raises ``TypeError``
-    rather than pass through with its global shape.
+    rather than pass through with its global shape, and a dim its layout
+    splits unevenly raises ``ValueError`` (the outputs' global shapes are
+    their local ones times the ways each dim is split).
 
     Gradients: an argument whole over a mesh dim that another argument
     is split over (a weight beside a batch shard) gets, on each rank, the
@@ -196,6 +241,7 @@ def local_apply(fn, args, in_axes, out_axes):
     mesh = current_mesh()
     if mesh is None:
         return fn(*args)
+    name = getattr(fn, "__name__", fn)
     ins = tuple(None if ax is None else _placements(mesh, ax)
                 for ax in in_axes)
     split = [any(isinstance(pl[m], Shard) for pl in ins if pl is not None)
@@ -205,9 +251,11 @@ def local_apply(fn, args, in_axes, out_axes):
         if pl is None:
             local.append(a)
             continue
-        _need_dtensor(a, f"local_apply({getattr(fn, '__name__', fn)})")
+        _need_dtensor(a, f"local_apply({name})")
         if tuple(a.placements) != pl:
             a = a.redistribute(mesh, pl)
+        # the outputs are laid out from equal local shards
+        require_even(a.shape, mesh, pl, f"local_apply({name})")
         t = a.to_local(grad_placements=tuple(
             Partial() if split[m] and isinstance(p, Replicate) else p
             for m, p in enumerate(pl)))

@@ -196,10 +196,29 @@ def make_cache_specs(shapes: dict, mesh, rules: ShardingRules,
     return out
 
 
+def require_even(shape, mesh, placements, what: str) -> None:
+    """Raise ``ValueError`` unless every dim ``placements`` split is a
+    multiple of the mesh axes splitting it: an uneven shard is an error,
+    as an indivisible sharding of a ``jit`` argument is in the
+    reference."""
+    ways: dict = {}
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.shape[m]
+    for d, n in ways.items():
+        if shape[d] % n:
+            raise ValueError(
+                f"{what}: dim {d} of shape {tuple(shape)} is split {n} "
+                f"ways by {tuple(placements)}, which does not divide it")
+
+
 def distribute(tree, specs):
     """Lay out a params, moments, cache or batch tree (nested dicts of
     tensors) as DTensors by a ``Sharding`` tree of the same structure.
-    Every rank passes the same global values; each keeps its shard."""
+    Every rank passes the same global values; each keeps its shard.  A
+    dim the mesh does not divide raises ``ValueError``."""
     if isinstance(tree, dict):
         return {k: distribute(tree[k], specs[k]) for k in tree}
+    require_even(tree.shape, specs.mesh, specs.placements,
+                 f"distribute(spec {specs.spec!r})")
     return distribute_tensor(tree, specs.mesh, specs.placements)

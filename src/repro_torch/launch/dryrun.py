@@ -96,7 +96,8 @@ def pad_vocab(cfg):
 
 def layers_scaled(cfg, k: int):
     """Depth-k variant of ``cfg`` (hybrid: k groups), the reference's
-    probe depth."""
+    probe depth; the port runs no probes, and keeps it for whoever cuts a
+    cell's depth."""
     if cfg.family == "hybrid":
         return dataclasses.replace(cfg, n_layers=cfg.shared_attn_every * k)
     return dataclasses.replace(cfg, n_layers=k)
@@ -125,7 +126,9 @@ if not _PROPAGATION_CODE:
 
 
 def _in_propagation() -> bool:
-    f = sys._getframe(2)
+    """Whether DTensor's sharding propagation is on the Python stack (a
+    dispatch from autograd's engine may have no Python caller at all)."""
+    f = sys._getframe(1)
     while f is not None:
         if f.f_code in _PROPAGATION_CODE:
             return True
@@ -326,15 +329,13 @@ def _record(cfg, shape, mesh, run: CellRun, variant) -> dict:
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
-               *, fsdp_train: bool = True, probe: bool = True,
-               variant: dict | None = None, device="cuda",
-               q_block: int = 512, kv_block: int = 512) -> dict:
-    """One production cell on its placeholder world; the record.
-
-    ``probe`` is the reference's switch for its depth probes, kept for
-    its callers; the counts here need none (``NO_PROBES``).  ``device``
-    is where the fake tensors live (the card by default; without one this
-    raises)."""
+               *, fsdp_train: bool = True, variant: dict | None = None,
+               device="cuda", q_block: int = 512,
+               kv_block: int = 512) -> dict:
+    """One production cell on its placeholder world; the record.  The
+    reference's ``probe`` switch has no counterpart: the counts here need
+    no probes (``NO_PROBES``).  ``device`` is where the fake tensors live
+    (the card by default; without one this raises)."""
     dev = resolve_device(device)
     cfg = pad_vocab(get_arch(arch))
     if variant and "remat_policy" in variant:

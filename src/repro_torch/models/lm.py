@@ -21,13 +21,12 @@ from typing import Any
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..api import resolve_device
 from ..configs.base import ArchConfig
-from ..dist.api import (ambient, along, constrain, get_option,
+from ..dist.api import (ambient, along, constrain, gathered, get_option,
                         local_apply, replicated)
 from .attention import attn_decode, attn_forward, init_attn
 from .layers import dense_init, rms_norm, sq_relu_ffn, swiglu
@@ -94,6 +93,13 @@ def _cx(x):
     layout with the ``seq_parallel`` option)."""
     if get_option("seq_parallel") and x.ndim == 3:
         return constrain(x, "batch", "model", None)
+    return constrain(x, "batch", None, None)
+
+
+def _cxd(x):
+    """The residual stream of one token, laid out by batch (under a mesh
+    each branch's partial sums are reduced here, as ``_cx`` does
+    in ``_block_fwd``)."""
     return constrain(x, "batch", None, None)
 
 
@@ -228,6 +234,7 @@ def _ffn(p, z, cfg):
 
 
 def _block_fwd(p, x, cfg, positions, q_block, kv_block):
+    p = gathered(p)
     x = _cx(x)
     h, _ = attn_forward(p["attn"], rms_norm(x, p["ln1"]), cfg, positions,
                         q_block=q_block, kv_block=kv_block)
@@ -241,6 +248,7 @@ def _block_fwd(p, x, cfg, positions, q_block, kv_block):
 
 
 def _ssm_block_fwd(p, x, cfg):
+    p = gathered(p)
     x = _cx(x)
     h, st, conv = ssd_forward(p["ssm"], rms_norm(x, p["ln"]), cfg)
     return _cx(x + _cx(h)), st, conv
@@ -332,14 +340,14 @@ def forward(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512,
 
 
 def apply_head(params, cfg: ArchConfig, x):
+    head = gathered(params["head"])
     if cfg.input_kind == "codes":
-        if isinstance(x, DTensor):
-            # one product a codebook: DTensor cannot lay the vocab-
-            # sharded head through the einsum's reshaped batched product
-            return torch.stack([x @ params["head"][q]
-                                for q in range(cfg.n_codebooks)], dim=-2)
-        return torch.einsum("...d,qdv->...qv", x, params["head"])
-    return x @ params["head"]
+        # one product a codebook (the reference's einsum "...d,qdv->...qv",
+        # bit for bit): DTensor cannot lay a vocab-sharded head through
+        # the einsum's reshaped batched product
+        return torch.stack([x @ head[q] for q in range(cfg.n_codebooks)],
+                           dim=-2)
+    return x @ head
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512):
@@ -358,7 +366,14 @@ def loss_fn(params, cfg: ArchConfig, batch, *, q_block=512, kv_block=512):
     m = lf.amax(dim=-1)
     lse = m + torch.log(constrain(torch.sum(torch.exp(lf - m[..., None]),
                                             dim=-1), *tok_axes))
-    is_gold = iota_v == labels[..., None].long()
+    # the compare per rank on its batch and vocab shards: laid out by
+    # DTensor, a compare broadcast over the labels' unit dim may come out
+    # whole over the vocab, with every op after it (the vocab is whole
+    # where the batch takes the model axis too)
+    v_ax = None if get_option("dp_all") else "model"
+    is_gold = local_apply(lambda iv, lb: iv == lb[..., None].long(),
+                          (iota_v, labels), [(v_ax,), tok_axes],
+                          tok_axes + (v_ax,))
     gold = constrain(torch.sum(torch.where(is_gold, lf, 0.0), dim=-1),
                      *tok_axes)
     return torch.mean(constrain(lse - gold, *tok_axes))
@@ -410,18 +425,22 @@ def _ssm_decode_layers(blocks, x, state, conv, cfg):
     """Decode one token through stacked SSM blocks, writing each layer's
     new state and conv window into ``state[i]`` / ``conv[i]``."""
     for i, p in enumerate(_unstack(blocks)):
+        p = gathered(p)
+        x = _cxd(x)
         h, st2, conv2 = ssd_decode(p["ssm"], rms_norm(x, p["ln"]),
                                    state[i], conv[i], cfg)
         state[i] = st2
         conv[i] = conv2
-        x = x + h
+        x = _cxd(x + _cxd(h))
     return x
 
 
 def _attn_decode_block(p, x, ck, cv, pos, cfg):
+    p = gathered(p)
+    x = _cxd(x)
     h, _, _ = attn_decode(p["attn"], rms_norm(x, p["ln1"]), ck, cv, pos, cfg)
-    x = x + h
-    return x + _ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg)
+    x = x + _cxd(h)
+    return _cxd(x + _cxd(_ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg)))
 
 
 def decode_step(params, cfg: ArchConfig, cache, batch, pos: int):

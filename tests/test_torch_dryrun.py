@@ -6,7 +6,9 @@
   kind on a fake 2x2 mesh gives the stats ``parse_collectives`` reads
   from the same op written as an HLO line.
 * The per-chip flops the dry run counts for a one-layer smoke
-  qwen1.5-0.5b prefill equal a hand count of its products.
+  qwen1.5-0.5b prefill, its decode and the full-width production cell
+  equal hand counts of their products; a dim the mesh does not divide
+  raises.
 * ``run_smoke`` runs its 5 cells; ``python -m repro_torch.launch.dryrun
   --arch qwen1.5-0.5b --shape train_4k --device cpu`` writes one record.
 * Sharded numerics, in one test: 4 gloo processes on a real 2x2 CPU
@@ -34,11 +36,12 @@ import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro.launch import roofline as rroof
 from repro_torch.configs import smoke_config
-from repro_torch.dist.api import read_shard
+from repro_torch.dist.api import active_mesh, local_apply, read_shard
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_smoke_mesh, placeholder_world
 from repro_torch.launch.roofline import CollectiveRecorder
@@ -149,6 +152,47 @@ def test_prefill_flops_per_chip_equal_a_hand_count():
     assert run.coll.counts
 
 
+def test_decode_flops_per_chip_equal_a_hand_count():
+    """decode_smoke of the smoke qwen1.5-0.5b (2 layers; B 8, a cache of
+    128) on the 2x2 mesh: rank 0 projects its 4 rows with half of the
+    heads, of d_ff and of the vocab, and attends with every head over
+    its batch shard of the cache (the cache is split by batch only).
+    Left unconstrained, DTensor ran the FFN on weights gathered over the
+    model axis."""
+    cfg = dryrun.pad_vocab(smoke_config("qwen1.5-0.5b"))
+    Bl, Smax, d, hd, Hl, KHl, H, fl, Vl = 4, 128, 64, 16, 2, 1, 4, 64, 128
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    layer = (mm(Bl, d, Hl * hd) + 2 * mm(Bl, d, KHl * hd)
+             + 2 * 2 * Bl * H * Smax * hd       # scores and values
+             + mm(Bl, Hl * hd, d) + 3 * mm(Bl, d, fl))
+    want = 2 * layer + mm(Bl, d, Vl)
+    assert want == 622_592
+    with placeholder_world(4, "cpu"):
+        mesh = make_smoke_mesh("cpu")
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES["decode_smoke"],
+                               mesh)
+    assert run.flops == want
+
+
+def test_uneven_shards_raise():
+    """A dim the mesh does not divide fails the cell, as the reference's
+    ``jit`` refuses such an argument, rather than give wrong global
+    shapes: long_500k's one sequence on the 16-wide data axis, and a
+    ``local_apply`` argument split unevenly."""
+    with pytest.raises(ValueError, match="does not divide"):
+        dryrun.lower_cell("mamba2-130m", "long_500k", False, device="cpu")
+    assert not dist.is_initialized()
+    with placeholder_world(4, "cpu"):
+        mesh = make_smoke_mesh("cpu")
+        with FakeTensorMode(), active_mesh(mesh):
+            x = distribute_tensor(torch.empty(3, 4), mesh,
+                                  [Shard(0), Replicate()])
+            with pytest.raises(ValueError, match="does not divide"):
+                local_apply(lambda t: t * 2, (x,), [("batch", None)],
+                            ("batch", None))
+    assert not dist.is_initialized()
+
+
 def test_run_smoke_all_cells(tmp_path):
     records = []
     failures = dryrun.run_smoke(tmp_path, device="cpu", records=records)
@@ -167,6 +211,28 @@ def test_run_smoke_all_cells(tmp_path):
     assert not dist.is_initialized()
 
 
+PRODUCTION_PEAK_BYTES = 16_589_204_492
+
+
+def train_flops_hand_count():
+    """The products one chip of 256 runs in a qwen1.5-0.5b train_4k step
+    on 16x16 (d 1024, 16 heads of 64, d_ff 2816, vocab 151,936, 24
+    layers; 16 sequences of 4,096 tokens a chip; heads, d_ff and vocab
+    split 16 ways; one 4,096-row attention block): the head forward and
+    its two backward products; every layer forward, recomputed (its
+    checkpoint stops before the down projection, which the backward does
+    not need) and its two backward products.  A product run on a whole
+    weight, or on every head, would add to it."""
+    T, S, d, hl, fl, vl, L = 16 * 4096, 4096, 1024, 64, 176, 9496, 24
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    fwd = (mm(T, d, 3 * hl) + mm(T, hl, d)      # q, k, v; o
+           + mm(T, d, 2 * fl) + mm(T, fl, d)    # gate, up; down
+           + 2 * 2 * T * S * hl)                # scores and values
+    want = 3 * mm(T, d, vl) + L * (4 * fwd - mm(T, fl, d))
+    assert want == 19_955_491_799_040
+    return want
+
+
 def test_production_cell_cli(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -181,6 +247,11 @@ def test_production_cell_cli(tmp_path):
     rec = json.loads(files[0].read_text())
     assert rec["n_chips"] == 256 and rec["mesh"] == "16x16"
     assert rec["params"] == 619_495_424
+    assert rec["cost"]["flops"] == train_flops_hand_count()
+    # the peak is in the loss: five float32 (16, 4096, 9496) logit shards,
+    # the 24 layers' saved inputs and the arguments' shards; torch 2.11
+    # and 2.13 lay the step out alike and count the same bytes
+    assert rec["memory"]["peak_bytes"] == PRODUCTION_PEAK_BYTES
     assert rec["cost"]["flops"] > rec["roofline"]["model_flops_per_chip"] > 0
     assert set(rec["collectives"]["counts"]) >= {"all-gather", "all-reduce"}
     assert rec["hardware"] == {"peak_flops": 989e12, "hbm_bw": 3.35e12,
