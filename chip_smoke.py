@@ -121,6 +121,13 @@ Phases (each prints one line, any failure raises and exits non-zero):
    first moment) within 1e-3 of its max, every one finite, and the
    params at most 2 x lr x steps apart with at most 1e-4 of the elements
    more than 1e-5 apart.
+17. dry run: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
+   2x2 placeholder mesh) and the qwen1.5-0.5b and dbrx-132b ``train_4k``
+   cells on 16x16, three subprocesses, fake tensors on the card: seven
+   cells' per-chip flops equal hand counts to the digit, and the MoE
+   smoke cell moves its tokens by all-to-all;
+18. a sharded step: 3 bf16 train steps of phase 15's shape on a 1x1
+   cuda mesh over NCCL, bit-identical to the unsharded steps.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
 launched.  The LM path reaches none of the three kernels: phases 13-16
@@ -249,11 +256,12 @@ LM_LOSS_TOL = 1e-4         # |loss diff| / (1 + |loss|)
 LM_GRAD_TOL = 1e-3         # max |grad diff| over the leaf's max |grad|
 LM_PARAM_CLOSE = 1e-5      # updated params: all but a share within this
 LM_PARAM_SHARE = 1e-4      # the share of elements allowed over it
-# phase 17: the dry run's smoke sweep and one production cell, each in a
-# process of its own (the placeholder world stays out of this one); the
-# production cell's attention in whole-sequence blocks (the counts are
-# those of 512-row blocks: PERF.md)
+# phase 17: the dry run's smoke sweep and two production cells, a dense
+# one and a MoE one, each in a process of its own (the placeholder world
+# stays out of this one); the production cells' attention in
+# whole-sequence blocks (the counts are those of 512-row blocks: PERF.md)
 DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k")
+DRYRUN_MOE_CELL = ("dbrx-132b", "train_4k")
 DRYRUN_Q_BLOCK = 4096
 DRYRUN_TIMEOUT_S = 240
 #: the production cell's peak of live local bytes a chip (in the loss:
@@ -1859,40 +1867,93 @@ def dense_train_flops_per_chip(cfg, B: int, S: int, data: int,
     return 3 * mm(T, d, vl) + cfg.n_layers * (4 * layer_fwd - mm(T, fl, d))
 
 
-def prefill_smoke_flops_per_chip() -> int:
-    """Hand count of the products one chip of the 2x2 smoke mesh runs in
-    the smoke qwen1.5-0.5b's prefill_smoke (2 layers of d 64, 4 heads and
-    2 KV heads of 16, d_ff 128, vocab 256; B 4, S 128; every (q, kv)
-    block pair): 2 sequences, half of the heads, of d_ff and of the
-    vocab, the head on the last position only."""
-    T, S, d, hl, kvl, fl, vl = 2 * 128, 128, 64, 32, 16, 64, 128
+def moe_train_flops_per_chip(cfg, B: int, S: int, data: int,
+                             model: int) -> int:
+    """Hand count of the products one chip runs in a MoE train step
+    (every layer checkpointed; the capacity of the global batch): the
+    head's product forward and its two backward ones; each layer's
+    forward, recomputed and its two backward ones.  A layer: q and o on
+    the rank's share of the head columns, k and v on its share of the KV
+    columns, attention with EVERY head (dbrx's 8 KV heads do not divide
+    a 16-wide model axis: ROADMAP Queue 3) and so o's weight gradient on
+    the whole attention output, the router on the rank's tokens, and the
+    expert products on its E/data experts at all C slots and d_ff/model
+    (the down projection is recomputed: the combine's backward needs
+    its output)."""
+    Bl = B // data
+    T = Bl * S
+    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    hl, kvl = H * hd // model, cfg.n_kv_heads * hd // model
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = int(B * S * k * 1.25 / E)
+    El, fl, vl = E // data, cfg.d_ff // model, cfg.vocab // model
 
     def mm(m, k, n):
         return 2 * m * k * n
-    layer = (mm(T, d, hl + 2 * kvl) + 2 * 2 * T * S * hl + mm(T, hl, d)
-             + 3 * mm(T, d, fl))
-    return 2 * layer + mm(2, d, vl)
+    layer_fwd = (mm(T, d, hl + 2 * kvl) + 2 * 2 * Bl * S * S * H * hd
+                 + mm(T, hl, d) + mm(T, d, E)
+                 + El * (2 * mm(C, d, fl) + mm(C, fl, d)))
+    return 3 * mm(T, d, vl) + cfg.n_layers * (
+        4 * layer_fwd - mm(hl, T, d) + mm(H * hd, T, d))
+
+
+def smoke_flops_per_chip() -> dict:
+    """Hand counts of the products one chip of the 2x2 smoke mesh runs in
+    four of the dry run's smoke cells (2 layers of d 64; 4 heads and 2 KV
+    heads of 16; d_ff 128; vocab 256: 128 a rank), as
+    ``tests/test_torch_dryrun.py`` writes each out term by term:
+
+    * qwen1.5-0.5b prefill_smoke (B 4, S 128): 2 sequences, half of the
+      heads, of d_ff and of the vocab, every (q, kv) block pair, the
+      head on the last position only;
+    * qwen1.5-0.5b decode_smoke (B 8, a cache of 128): 4 rows, attending
+      with the rank's 2 query heads and their KV head;
+    * dbrx-132b train_smoke (B 8, S 128, top-2 of 4 experts, no remat):
+      512 tokens, the router on them, the expert products on the rank's
+      2 experts at all C = 640 slots and half of d_ff, every product
+      forward and its two backward ones;
+    * mamba2-130m decode_smoke (B 8; 8 heads of 16, state 16, a packed
+      in_proj of 296 columns): 4 rows through the rank's 4 heads, the
+      depthwise conv of their 64 x channels and the 32 B and C ones."""
+    def mm(m, k, n):
+        return 2 * m * k * n
+    prefill = (mm(256, 64, 32 + 2 * 16) + 2 * 2 * 256 * 128 * 32
+               + mm(256, 32, 64) + 3 * mm(256, 64, 64))
+    decode = (mm(4, 64, 32 + 2 * 16) + 2 * 2 * 4 * 2 * 128 * 16
+              + mm(4, 32, 64) + 3 * mm(4, 64, 64))
+    moe = (mm(512, 64, 32 + 2 * 16) + 2 * 2 * 4 * 128 * 128 * 32
+           + mm(512, 32, 64) + mm(512, 64, 4)
+           + 2 * (2 * mm(640, 64, 64) + mm(640, 64, 64)))
+    ssm = (mm(4, 64, 148) + (64 + 32) * mm(4, 4, 1) + 4 * 4 * mm(1, 16, 16)
+           + mm(4, 64, 64))
+    return {("qwen1.5-0.5b", "prefill_smoke"): 2 * prefill + mm(2, 64, 128),
+            ("qwen1.5-0.5b", "decode_smoke"): 2 * decode + mm(4, 64, 128),
+            ("dbrx-132b", "train_smoke"): 3 * (2 * moe + mm(512, 64, 128)),
+            ("mamba2-130m", "decode_smoke"): 2 * ssm + mm(4, 64, 128)}
 
 
 def dryrun_phase(tmp: pathlib.Path) -> None:
     """Phase 17: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
     2x2 mesh of a 4-rank placeholder world) and the full-width
-    production cell DRYRUN_CELL on the 16x16 mesh of a 256-rank world,
-    two processes at once, fake tensors on the card; each must exit 0,
-    write its records and launch no BWA-MEM kernel (each reports the
-    counts of its own run), and each record is printed.  The production
-    cell's per-chip flops must equal ``dense_train_flops_per_chip`` and
-    its peak DRYRUN_PEAK_BYTES (the counts of torch 2.13 on the CPU), the
-    prefill smoke cell's flops ``prefill_smoke_flops_per_chip``."""
+    production cells DRYRUN_CELL and DRYRUN_MOE_CELL on the 16x16 mesh
+    of a 256-rank world, three processes at once, fake tensors on the
+    card; each must exit 0, write its records and launch no BWA-MEM
+    kernel (each reports the counts of its own run), and each record is
+    printed.  The dense production cell's per-chip flops must equal
+    ``dense_train_flops_per_chip`` and its peak DRYRUN_PEAK_BYTES (the
+    counts of torch 2.13 on the CPU), the MoE one's
+    ``moe_train_flops_per_chip``, four smoke cells' flops
+    ``smoke_flops_per_chip``."""
     t_phase = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p])}
     base = [sys.executable, "-c", DRYRUN_CHILD]
-    runs = {"smoke": base + ["--smoke", "--out-dir", str(tmp / "smoke")],
-            "cell": base + ["--arch", DRYRUN_CELL[0], "--shape",
-                            DRYRUN_CELL[1], "--q-block", str(DRYRUN_Q_BLOCK),
-                            "--out-dir", str(tmp / "cell")]}
+    runs = {"smoke": base + ["--smoke", "--out-dir", str(tmp / "smoke")]}
+    for key, (arch, shape) in (("cell", DRYRUN_CELL),
+                               ("moe", DRYRUN_MOE_CELL)):
+        runs[key] = base + ["--arch", arch, "--shape", shape, "--q-block",
+                            str(DRYRUN_Q_BLOCK), "--out-dir", str(tmp / key)]
     procs = {k: subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
@@ -1917,10 +1978,10 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
         if not launches[k] or any(launches[k].values()):
             raise AssertionError(f"dryrun {k} launched BWA-MEM kernels: "
                                  f"{launches[k]}")
-    recs = [json.loads(f.read_text())
-            for d in ("smoke", "cell") for f in sorted((tmp / d).glob("*.json"))]
-    if len(recs) != 6:
-        raise AssertionError(f"dryrun wrote {len(recs)} records, not 6")
+    recs = [json.loads(f.read_text()) for d in runs
+            for f in sorted((tmp / d).glob("*.json"))]
+    if len(recs) != 7:
+        raise AssertionError(f"dryrun wrote {len(recs)} records, not 7")
     for r in recs:
         rf, c = r["roofline"], r["collectives"]
         if not (r["cost"]["flops"] > 0 and c["counts"]
@@ -1939,28 +2000,36 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
               memory_s=f"{rf['memory_s']:.6g}",
               collective_s=f"{rf['collective_s']:.6g}",
               dominant=rf["dominant"],
+              roofline_fraction=f"{rf['roofline_fraction']:.6g}",
               argument_bytes=r["memory"]["argument_bytes"],
               peak_bytes=r["memory"]["peak_bytes"])
-    cell = recs[-1]
-    cfg = get_arch(DRYRUN_CELL[0])
-    shape = SHAPES[DRYRUN_CELL[1]]
-    want = dense_train_flops_per_chip(cfg, shape.global_batch,
-                                      shape.seq_len, 16, 16)
-    if cell["cost"]["flops"] != want:
-        raise AssertionError(f"dryrun {DRYRUN_CELL}: {cell['cost']['flops']}"
-                             f" flops a chip, the hand count is {want}")
+    by_cell = {(r["arch"], r["shape"]): r for r in recs}
+    want = {key: count(get_arch(key[0]), SHAPES[key[1]].global_batch,
+                       SHAPES[key[1]].seq_len, 16, 16)
+            for key, count in ((DRYRUN_CELL, dense_train_flops_per_chip),
+                               (DRYRUN_MOE_CELL, moe_train_flops_per_chip))}
+    want.update(smoke_flops_per_chip())
+    for (arch, sname), count in want.items():
+        got = by_cell[arch, sname]["cost"]["flops"]
+        if got != count:
+            raise AssertionError(f"dryrun {arch} {sname}: {got} flops a "
+                                 f"chip, the hand count is {count}")
+    cell = by_cell[DRYRUN_CELL]
     if cell["memory"]["peak_bytes"] != DRYRUN_PEAK_BYTES:
         raise AssertionError(f"dryrun {DRYRUN_CELL}: peak "
                              f"{cell['memory']['peak_bytes']} bytes a chip, "
                              f"not {DRYRUN_PEAK_BYTES}")
-    prefill = next(r for r in recs if r["shape"] == "prefill_smoke")
-    want_prefill = prefill_smoke_flops_per_chip()
-    if prefill["cost"]["flops"] != want_prefill:
-        raise AssertionError(f"dryrun prefill_smoke: "
-                             f"{prefill['cost']['flops']} flops a chip, the "
-                             f"hand count is {want_prefill}")
+    a2a = by_cell["dbrx-132b", "train_smoke"]["collectives"]["counts"].get(
+        "all-to-all", 0)
+    if a2a < 2:
+        raise AssertionError(f"dryrun dbrx-132b train_smoke: {a2a} "
+                             "all-to-alls, the tokens' exchange needs 2+")
     phase("dryrun", cells=len(recs), smoke_wall_s=f"{walls['smoke']:.2f}",
-          cell_wall_s=f"{walls['cell']:.2f}", hand_count_flops=want,
+          cell_wall_s=f"{walls['cell']:.2f}",
+          moe_cell_wall_s=f"{walls['moe']:.2f}",
+          moe_cell_run_s=f"{by_cell[DRYRUN_MOE_CELL]['run_s']:.2f}",
+          hand_counts=json.dumps({f"{a} {s}": v for (a, s), v in
+                                  want.items()}, separators=(",", ":")),
           launches=json.dumps(launches, separators=(",", ":")),
           q_block=DRYRUN_Q_BLOCK, hardware=json.dumps(recs[-1]["hardware"],
                                                       separators=(",", ":")),
@@ -2225,7 +2294,7 @@ def main() -> int:
     # 16. LM training in float32: the card against the CPU
     lm_train_exact_phase(dev)
 
-    # 17. the dry run: smoke cells and a production cell, counted
+    # 17. the dry run: smoke cells and two production cells, counted
     with tempfile.TemporaryDirectory() as tmp:
         dryrun_phase(pathlib.Path(tmp))
 

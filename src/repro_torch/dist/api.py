@@ -28,6 +28,7 @@ import time
 import warnings
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed._functional_collectives import AsyncCollectiveTensor
 
@@ -268,6 +269,49 @@ def local_apply(fn, args, in_axes, out_axes):
                      for o, ax in zip(out, out_axes, strict=True))
     return DTensor.from_local(out, mesh, _placements(mesh, out_axes),
                               run_check=False)
+
+
+def exchange(t):
+    """All-to-all of a LOCAL tensor (inside ``local_apply``'s ``fn``)
+    over the mesh axes the batch is split over, whose ``n`` ranks are
+    numbered as a batch-split dim numbers its shards (the first axis
+    major).  ``t``'s leading dim is ``n`` blocks: block ``i`` goes to
+    batch rank ``i``; the result's block ``j`` is what batch rank ``j``
+    sent this rank.  Over several axes it is one all-to-all an axis,
+    which routes every block to the same place.  Its gradient is the
+    same exchange of the gradient.  Without a mesh, or with one batch
+    rank, ``t`` itself.
+
+    DTensor's own all-to-all (a ``Shard(i)`` to ``Shard(j)``
+    redistribution) moves the parts of one tensor that every rank holds
+    a slice of; this moves what each rank packed for each other one, as
+    a token-to-expert dispatch needs."""
+    mesh = current_mesh()
+    if mesh is None:
+        return t
+    groups = [mesh.get_group(a) for a in batch_mesh_axes(mesh)]
+    groups = [g for g in groups if g.size() > 1]
+    return _Exchange.apply(t, tuple(groups)) if groups else t
+
+
+def _all_to_all(t, groups):
+    x = t.reshape(*(g.size() for g in groups), *t.shape[1:])
+    for m, g in enumerate(groups):
+        x = x.movedim(m, 0).contiguous()
+        x = funcol.wait_tensor(funcol.all_to_all_single(x, None, None, g))
+        x = x.movedim(0, m)
+    return x.reshape(t.shape)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _all_to_all(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.groups), None
 
 
 def read_shard(spec: str | None = None) -> tuple[int, int]:

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
-from ..dist.api import along, current_mesh, local_apply, replicated
+from ..dist.api import (along, constrain, current_mesh, local_apply,
+                        replicated)
 from .layers import apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -199,18 +200,25 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
     so that the update fits: a ``pos >= Smax`` writes at ``Smax - 1``.
     Softmax runs over the full static cache with the unclamped
     ``arange(Smax) <= pos`` mask.  Under a mesh each rank attends over
-    its batch shard of the cache with every head.
+    its batch shard of the cache with, where ``_head_axis`` allows, its
+    own query heads and their KV heads (sliced from the cache, which is
+    whole over ``model``); the new K and V are laid out as the cache is
+    before they are written.
     """
     B = x.shape[0]
     shape = (B, 1) if cfg.rope != "mrope" else (3, B, 1)
     positions = replicated(torch.full(shape, pos, dtype=torch.int32,
                                       device=x.device), x)
-    flat = ("batch", None, None)
-    heads = ("batch", None, None, None)
+    h = _head_axis(cfg, current_mesh())
+    flat = ("batch", None, h)
+    heads = ("batch", None, h, None)
     q, k_new, v_new = local_apply(
         lambda q, k, v, pos_: _heads(q, k, v, pos_, cfg),
         (*_project(p, x, cfg), positions),
         [flat, flat, flat, _pos_axes(positions)], [heads, heads, heads])
+    if h is not None:
+        k_new = constrain(k_new, "batch", None, None, None)
+        v_new = constrain(v_new, "batch", None, None, None)
     Smax = cache_k.shape[1]
     at = min(max(int(pos), 0), Smax - 1)
     _write_at(cache_k, at, k_new)

@@ -5,20 +5,23 @@
 * ``CollectiveRecorder``: one hand-built ``redistribute`` a collective
   kind on a fake 2x2 mesh gives the stats ``parse_collectives`` reads
   from the same op written as an HLO line.
-* The per-chip flops the dry run counts for a one-layer smoke
-  qwen1.5-0.5b prefill, its decode and the full-width production cell
-  equal hand counts of their products; a dim the mesh does not divide
-  raises.
+* The per-chip flops the dry run counts equal hand counts of their
+  products: a one-layer smoke qwen1.5-0.5b prefill and its decode, the
+  smoke dbrx-132b's train step (with its all-to-alls), the smoke
+  mamba2-130m's prefill and decode, and the full-width production cell;
+  a dim the mesh does not divide raises.
 * ``run_smoke`` runs its 5 cells; ``python -m repro_torch.launch.dryrun
   --arch qwen1.5-0.5b --shape train_4k --device cpu`` writes one record.
 * Sharded numerics, in one test: 4 gloo processes on a real 2x2 CPU
   mesh run the forward, loss and gradients of the smoke qwen1.5-0.5b,
-  of dbrx-132b with ``moe_ep`` and of mamba2-130m (weights whole on
-  every rank beside batch shards: their gradients are summed over the
-  data axis), within 1e-5 of the unsharded port in float32; the
-  unsharded port is held to the JAX reference within
-  the 1e-4 of ``tests/test_torch_train_step.py``; and 3 decode steps with
-  the KV cache sharded by batch, and by sequence too, within 1e-5.
+  of dbrx-132b with the default dispatch and with ``moe_ep``, of
+  mamba2-130m and of zamba2-7b (weights whole on every rank beside
+  batch shards: their gradients are summed over the data axis), within
+  1e-5 of the unsharded port in float32, with the same MoE keep masks; the
+  unsharded port is held to the JAX reference within the 1e-4 of
+  ``tests/test_torch_train_step.py``; and 3 decode steps of qwen1.5-0.5b,
+  mamba2-130m and zamba2-7b with the cache sharded by batch, and the KV
+  cache by sequence too, within 1e-5.
 
 This module imports no JAX at its top: the 4 processes import it.
 """
@@ -155,18 +158,101 @@ def test_prefill_flops_per_chip_equal_a_hand_count():
 def test_decode_flops_per_chip_equal_a_hand_count():
     """decode_smoke of the smoke qwen1.5-0.5b (2 layers; B 8, a cache of
     128) on the 2x2 mesh: rank 0 projects its 4 rows with half of the
-    heads, of d_ff and of the vocab, and attends with every head over
-    its batch shard of the cache (the cache is split by batch only).
-    Left unconstrained, DTensor ran the FFN on weights gathered over the
-    model axis."""
+    heads, of d_ff and of the vocab, and attends with its own 2 query
+    heads and their KV head over its batch shard of the cache (the cache
+    is split by batch only; each rank slices its KV heads).  Left
+    unconstrained, DTensor ran the FFN on weights gathered over the
+    model axis; attending with every head counted 622,592."""
     cfg = dryrun.pad_vocab(smoke_config("qwen1.5-0.5b"))
-    Bl, Smax, d, hd, Hl, KHl, H, fl, Vl = 4, 128, 64, 16, 2, 1, 4, 64, 128
+    Bl, Smax, d, hd, Hl, KHl, fl, Vl = 4, 128, 64, 16, 2, 1, 64, 128
     mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
     layer = (mm(Bl, d, Hl * hd) + 2 * mm(Bl, d, KHl * hd)
-             + 2 * 2 * Bl * H * Smax * hd       # scores and values
+             + 2 * 2 * Bl * Hl * Smax * hd      # scores and values
              + mm(Bl, Hl * hd, d) + 3 * mm(Bl, d, fl))
     want = 2 * layer + mm(Bl, d, Vl)
-    assert want == 622_592
+    assert want == 491_520
+    with placeholder_world(4, "cpu"):
+        mesh = make_smoke_mesh("cpu")
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES["decode_smoke"],
+                               mesh)
+    assert run.flops == want
+
+
+def test_moe_train_flops_per_chip_equal_a_hand_count():
+    """train_smoke of the smoke dbrx-132b (2 layers of d 64, 4 heads and
+    2 KV heads of 16, 4 experts of d_ff 128, top-2, vocab 256; B 8, S
+    128, no remat) on the 2x2 mesh, default dispatch: rank 0 holds 4
+    sequences (T 1,024 tokens, 512 here) and half of the heads and of
+    the vocab.  Its router runs on its own tokens; its expert products
+    on its 2 of the 4 experts at every one of their C = 640 slots and
+    half of d_ff.  Every product forward and its two backward ones.
+    Routing all tokens on every rank counted 493,879,296."""
+    cfg = dryrun.pad_vocab(smoke_config("dbrx-132b"))
+    T, Bl, S, d, hd, Hl, KHl, Vl = 512, 4, 128, 64, 16, 2, 1, 128
+    E, El, C, fl = 4, 2, 640, 64
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    layer = (mm(T, d, Hl * hd) + 2 * mm(T, d, KHl * hd)
+             + 2 * 2 * Bl * S * S * Hl * hd     # scores and values
+             + mm(T, Hl * hd, d)
+             + mm(T, d, E)                      # router
+             + El * (2 * mm(C, d, fl)           # gate, up
+                     + mm(C, fl, d)))           # down
+    want = 3 * (2 * layer + mm(T, d, Vl))
+    assert want == 303_562_752
+    with placeholder_world(4, "cpu"):
+        mesh = make_smoke_mesh("cpu")
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES["train_smoke"],
+                               mesh, q_block=64, kv_block=64)
+    assert run.flops == want
+    # the tokens travel to their experts and back by all-to-all, in each
+    # layer forward and backward
+    assert run.coll.counts["all-to-all"] == 2 * 2 * 2
+
+
+def test_ssm_prefill_flops_per_chip_equal_a_hand_count():
+    """prefill_smoke of the smoke mamba2-130m (2 layers of d 64, d_in
+    128 in 8 heads of 16, state 16, one group, a packed in_proj of 296
+    columns, vocab 256; B 4, S 128, one chunk of 128) on the 2x2 mesh:
+    rank 0 projects its 2 sequences onto its half of the packed columns,
+    runs the SSD core on its 4 heads (after gathering the packed
+    projection) and out_proj on their 64 channels.  The core on every
+    head counted 51,675,136."""
+    cfg = dryrun.pad_vocab(smoke_config("mamba2-130m"))
+    Bl, S, d, P, Hl, N, Q = 2, 128, 64, 16, 4, 16, 128
+    T = Bl * S
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    nb = Bl * (S // Q) * Hl                     # (sequence, chunk, head)
+    layer = (mm(T, d, 296 // 2)                 # in_proj
+             + nb * (mm(Q, N, Q)                # C B^T within the chunk
+                     + mm(Q, Q, P)              # ... times dt x
+                     + mm(N, Q, P)              # the chunk's state
+                     + mm(Q, N, P))             # C times the state in
+             + mm(T, Hl * P, d))                # out_proj
+    want = 2 * layer + mm(Bl, d, 128)           # head, last position
+    assert want == 32_800_768
+    with placeholder_world(4, "cpu"):
+        mesh = make_smoke_mesh("cpu")
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES["prefill_smoke"],
+                               mesh, q_block=64, kv_block=64)
+    assert run.flops == want
+
+
+def test_ssm_decode_flops_per_chip_equal_a_hand_count():
+    """decode_smoke of the smoke mamba2-130m (B 8) on the 2x2 mesh: rank
+    0 steps its 4 rows through its 4 heads: the packed projection on its
+    half of the columns, the depthwise conv of its heads' 64 x channels
+    and the 32 shared B and C ones (a (4 x 4) by (4 x 1) product a
+    channel), C times the new state, out_proj on its 64 channels.  The
+    core on every head counted 325,632."""
+    cfg = dryrun.pad_vocab(smoke_config("mamba2-130m"))
+    Bl, d, P, Hl, N, K = 4, 64, 16, 4, 16, 4
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    layer = (mm(Bl, d, 296 // 2)                # in_proj
+             + (Hl * P + 2 * N) * mm(Bl, K, 1)  # the conv window
+             + Bl * Hl * mm(1, N, P)            # y = C . state
+             + mm(Bl, Hl * P, d))               # out_proj
+    want = 2 * layer + mm(Bl, d, 128)
+    assert want == 305_152
     with placeholder_world(4, "cpu"):
         mesh = make_smoke_mesh("cpu")
         run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES["decode_smoke"],
@@ -267,8 +353,10 @@ def test_production_cell_cli(tmp_path):
 # ----------------------------- sharded numerics -----------------------------
 
 B, S, BLOCK, TOL, SHARD_TOL = 4, 16, 8, 1e-4, 1e-5
-CASES = (("qwen1.5-0.5b", {}), ("dbrx-132b", {"moe_ep": True}),
-         ("mamba2-130m", {}))
+CASES = (("qwen1.5-0.5b", {}), ("dbrx-132b", {}),
+         ("dbrx-132b", {"moe_ep": True}), ("mamba2-130m", {}),
+         ("zamba2-7b", {}))
+DECODE_ARCHS = ("qwen1.5-0.5b", "mamba2-130m", "zamba2-7b")
 
 
 def _f32(cfg):
@@ -287,16 +375,30 @@ def _np(t):
     return t.detach().float().numpy()
 
 
+def _case(name, opts) -> str:
+    return " ".join([name, *(f"{k}={v}" for k, v in opts.items())])
+
+
 def _mesh_worker(rank, port, ref_params, batches, out_q):
     """One of 4 ranks of a 2x2 gloo mesh: each case's forward, loss and
     gradients sharded, against the same computed unsharded on this rank;
-    rank 0 reports the unsharded values and the largest differences."""
+    rank 0 reports the unsharded values, the largest differences and
+    whether the MoE keep masks of every routing were the same."""
     from repro_torch.dist.api import active_mesh, options
     from repro_torch.dist.sharding import (distribute, make_batch_specs,
                                            make_param_specs, rules_for)
     from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import moe
     from repro_torch.models.convert import params_from_reference
     torch.set_num_threads(1)
+    keeps = []
+    assign = moe._assign
+
+    def recording(*a):
+        out = assign(*a)
+        keeps.append(out[2].clone())
+        return out
+    moe._assign = recording
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=4)
     try:
@@ -308,9 +410,12 @@ def _mesh_worker(rank, port, ref_params, batches, out_q):
             _, axes = lm.init_params(cfg, device="meta")
             batch = {k: torch.from_numpy(v.copy()) for k, v in nb.items()}
             kw = dict(q_block=BLOCK, kv_block=BLOCK)
+            keeps.clear()
             with options(**opts):
                 logits = lm.forward(params, cfg, batch, **kw)
                 loss, grads = loss_and_grads(params, cfg, batch, **kw)
+            want_keeps = list(keeps)
+            keeps.clear()
             with active_mesh(mesh), options(**opts):
                 sp = distribute(params, make_param_specs(
                     axes, params, mesh, rules_for(cfg, mesh)))
@@ -323,8 +428,13 @@ def _mesh_worker(rank, port, ref_params, batches, out_q):
                     "grads": max(float(np.abs(_np(a) - _np(b)).max())
                                  for a, b in zip(_leaves(sgrads),
                                                  _leaves(grads)))}
-            report[name] = {"diff": diff, "loss": float(loss),
-                            "grads": [_np(g) for g in _leaves(grads)]}
+            report[_case(name, opts)] = {
+                "diff": diff, "loss": float(loss),
+                "grads": [_np(g) for g in _leaves(grads)],
+                "keeps": (len(keeps), sum(int((~k).sum()) for k in keeps),
+                          len(keeps) == len(want_keeps) and all(
+                              torch.equal(a, b)
+                              for a, b in zip(keeps, want_keeps)))}
         report["decode"] = _sharded_decode_diff(mesh)
         if rank == 0:
             out_q.put(report)
@@ -333,16 +443,17 @@ def _mesh_worker(rank, port, ref_params, batches, out_q):
 
 
 def _sharded_decode_diff(mesh) -> dict:
-    """3 decode steps of two smoke archs, sharded against unsharded: the
-    largest difference of the logits and of the caches, with the KV
-    cache's batch sharded and with its sequence sharded too
-    (``kv_seq_model``), whose writes must land in the ranks' slices."""
+    """3 decode steps of three smoke archs (dense, SSM, hybrid), sharded
+    against unsharded: the largest difference of the logits and of the
+    caches, with the cache's batch sharded and with the KV cache's
+    sequence sharded too (``kv_seq_model``), whose writes must land in
+    the ranks' slices."""
     from repro_torch.dist.api import active_mesh
     from repro_torch.dist.sharding import (distribute, make_batch_specs,
                                            make_cache_specs,
                                            make_param_specs, rules_for)
     out = {}
-    for name in ("qwen1.5-0.5b", "zamba2-7b"):
+    for name in DECODE_ARCHS:
         cfg = _f32(smoke_config(name))
         params, axes = lm.init_params(cfg, device="cpu")
         toks = [torch.full((B, 1), 7 * i + 3, dtype=torch.int32)
@@ -406,6 +517,8 @@ def test_sharded_numerics_on_a_2x2_gloo_mesh():
         # the reference's values, while the 4 ranks run
         want = {}
         for (name, _), cfg, rp, nb in zip(CASES, cfgs, ref_params, batches):
+            if name in want:
+                continue
             lval, g = jax.jit(jax.value_and_grad(
                 lambda p, b: rlm.loss_fn(p, cfg, b, q_block=BLOCK,
                                          kv_block=BLOCK)))(rp, nb)
@@ -418,11 +531,17 @@ def test_sharded_numerics_on_a_2x2_gloo_mesh():
             if p.is_alive():
                 p.kill()
     assert [p.exitcode for p in procs] == [0] * 4
-    assert len(report["decode"]) == 4
+    assert len(report["decode"]) == 2 * len(DECODE_ARCHS)
     assert max(report["decode"].values()) <= SHARD_TOL, report["decode"]
-    for name, _ in CASES:
-        r = report[name]
+    for name, opts in CASES:
+        r = report[_case(name, opts)]
         assert max(r["diff"].values()) <= SHARD_TOL, (name, r["diff"])
+        n_keeps, n_dropped, same = r["keeps"]
+        # the forward and the loss route each of the 2 layers once, and
+        # the capacity drops some assignments: the masks are not all ones
+        if name == "dbrx-132b":
+            assert n_keeps == 4 and n_dropped > 0, r["keeps"]
+        assert same, (name, opts, r["keeps"])
         rl, rg = want[name]
         assert abs(r["loss"] - rl) <= TOL * (1 + abs(rl)), name
         assert len(r["grads"]) == len(rg)

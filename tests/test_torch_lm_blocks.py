@@ -15,6 +15,7 @@ import torch
 
 from repro.configs import smoke_config
 from repro.models import attention as rattn
+from repro.models import lm as rlm
 from repro.models import moe as rmoe
 from repro.models import ssm as rssm
 from repro.dist.api import options as roptions
@@ -22,6 +23,7 @@ from repro_torch.dist.api import options as toptions
 from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
+from repro_torch.models.convert import params_from_reference
 
 torch.set_num_threads(1)
 
@@ -313,3 +315,103 @@ def test_ssd_chunked_matches_sequential(ssm_case):
     np.testing.assert_allclose(npf(st_chunk), npf(state), rtol=2e-3,
                                atol=2e-3)
     np.testing.assert_allclose(npf(tail), npf(conv), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------ the blocks without a mesh ------------------------
+
+def _reference_keep(p, x, cfg, cf):
+    """Which assignments the reference keeps: the routing lines of
+    ``repro.models.moe._moe_dispatch`` (which does not return them)."""
+    T = x.shape[0]
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = max(int(T * k * cf / E), 1)
+    logits = jnp.einsum("td,de->te", x.astype(jnp.float32), p["router"])
+    _, topi = jax.lax.top_k(logits, k)
+    flat_e = topi.reshape(-1)
+    order = jnp.argsort(flat_e, stable=True)
+    first = jnp.searchsorted(flat_e[order], jnp.arange(E))
+    rank = jnp.zeros(T * k, jnp.int32).at[order].set(
+        (jnp.arange(T * k) - first[flat_e[order]]).astype(jnp.int32))
+    return np.asarray(rank < C)
+
+
+def _converted(name):
+    """The reference's float32 params of a smoke arch, and the port's
+    carried over by ``params_from_reference``."""
+    cfg = f32(name)
+    rp, _ = rlm.init_params(cfg, jax.random.PRNGKey(0))
+    tp = params_from_reference(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), rp), cfg,
+        device="cpu")
+    return cfg, rp, tp
+
+
+def _layer0(rp, tp, *path):
+    for k in path:
+        rp, tp = rp[k], tp[k]
+    return (jax.tree.map(lambda a: a[0], rp),
+            {k: v[0] for k, v in tp.items()})
+
+
+def test_blocks_without_a_mesh_vs_reference_on_converted_params(
+        monkeypatch):
+    """``moe_ffn``, ``ssd_forward``, ``ssd_decode`` and ``attn_decode``
+    with no mesh, on layer 0 of the reference's params of the smoke
+    dbrx-132b, mamba2-130m and qwen1.5-0.5b (float32) carried over by
+    ``models.convert``: each within 1e-4 of the JAX function, and the
+    MoE keep masks the reference's exactly, with drops and without.
+    The sharded paths of these blocks must leave this one as it was."""
+    rng = np.random.default_rng(21)
+    tol = dict(rtol=1e-4, atol=1e-4)
+
+    cfg, rp, tp = _converted("dbrx-132b")
+    rffn, tffn = _layer0(rp, tp, "blocks", "ffn")
+    x = rng.normal(size=(64, cfg.d_model)).astype(np.float32)
+    keeps = []
+    assign = tmoe._assign
+
+    def recording(*a):
+        out = assign(*a)
+        keeps.append(out[2].numpy())
+        return out
+    monkeypatch.setattr(tmoe, "_assign", recording)
+    for cf in (0.5, 1.25, 4.0):
+        want = rmoe.moe_ffn(rffn, jnp.asarray(x), cfg, capacity_factor=cf)
+        got = tmoe.moe_ffn(tffn, torch.as_tensor(x), cfg, capacity_factor=cf)
+        np.testing.assert_allclose(npf(got), npf(want), **tol)
+        ref_keep = _reference_keep(rffn, jnp.asarray(x), cfg, cf)
+        np.testing.assert_array_equal(keeps.pop(), ref_keep)
+        assert ref_keep.all() != (cf < 1)     # a capacity under 1 drops
+
+    cfg, rp, tp = _converted("mamba2-130m")
+    rssm_p, tssm_p = _layer0(rp, tp, "blocks", "ssm")
+    x = rng.normal(0, 0.5, size=(2, 32, cfg.d_model)).astype(np.float32)
+    want = rssm.ssd_forward(rssm_p, jnp.asarray(x), cfg, chunk=8)
+    got = tssm.ssd_forward(tssm_p, torch.as_tensor(x), cfg, chunk=8)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(npf(g), npf(w), **tol)
+    rs, rc = want[1], want[2]
+    ts, tc = got[1], got[2]
+    for s in range(4):
+        xt = x[:, s:s + 1]
+        ry, rs, rc = rssm.ssd_decode(rssm_p, jnp.asarray(xt), rs, rc, cfg)
+        ty, ts, tc = tssm.ssd_decode(tssm_p, torch.as_tensor(xt), ts, tc,
+                                     cfg)
+        for g, w in ((ty, ry), (ts, rs), (tc, rc)):
+            np.testing.assert_allclose(npf(g), npf(w), **tol)
+
+    cfg, rp, tp = _converted("qwen1.5-0.5b")
+    rattn_p, tattn_p = _layer0(rp, tp, "blocks", "attn")
+    B, Smax = 2, 8
+    c0 = rng.normal(size=(B, Smax, cfg.n_kv_heads, cfg.head_dim)).astype(
+        np.float32)
+    rck, rcv = jnp.asarray(c0), jnp.asarray(-c0)
+    tck, tcv = torch.tensor(c0), torch.tensor(-c0)
+    for p in range(Smax):
+        xt = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+        ro, rck, rcv = rattn.attn_decode(rattn_p, jnp.asarray(xt), rck, rcv,
+                                         jnp.int32(p), cfg)
+        to, tck, tcv = tattn.attn_decode(tattn_p, torch.as_tensor(xt), tck,
+                                         tcv, p, cfg)
+        for g, w in ((to, ro), (tck, rck), (tcv, rcv)):
+            np.testing.assert_allclose(npf(g), npf(w), **tol)
