@@ -124,13 +124,24 @@ Phases (each prints one line, any failure raises and exits non-zero):
 17. dry run: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
    2x2 placeholder mesh) and the qwen1.5-0.5b and dbrx-132b ``train_4k``
    cells on 16x16, three subprocesses, fake tensors on the card: seven
-   cells' per-chip flops equal hand counts to the digit, and the MoE
-   smoke cell moves its tokens by all-to-all;
+   cells' per-chip flops equal hand counts to the digit (dbrx attends
+   with each rank's 3 of its 48 heads), and the MoE smoke cell moves its
+   tokens by all-to-all;
 18. a sharded step: 3 bf16 train steps of phase 15's shape on a 1x1
-   cuda mesh over NCCL, bit-identical to the unsharded steps.
+   cuda mesh over NCCL, bit-identical to the unsharded steps;
+19. baseline: the original BWA-MEM organisation (``AlignOptions(engine=
+   "baseline")``: read by read, the scalar oracles on the host) on phase
+   5's first 128 reads gives phase 5's lines, and on phase 7's first 32
+   pairs (stats frozen from phase 4's rescue sample) the ``cuda``
+   engine's SAM on the card, with no kernel launched; it prints each
+   stage's seconds a read beside phase 5's and their ratio (the paper's
+   per-stage speedups), and the compressed SA's LF walk
+   (``sal_compressed``, both occ layouts) on the card against
+   ``sal_direct`` on the SA rows of phase 5's SMEM (CUDA events, median
+   of 20), values equal.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
-launched.  The LM path reaches none of the three kernels: phases 13-16
+launched; phase 19 fails if its engine launched any.  The LM path reaches none of the three kernels: phases 13-16
 set the counters to 0 before they start and fail if any kernel was
 launched by the end of any of them.
 
@@ -186,7 +197,9 @@ from repro_torch.core.contig import contig_edges  # noqa: E402
 from repro_torch import pe  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
                                        PipelineOptions, run_se_batched)
-from repro_torch.core.sal import seeds_from_intervals  # noqa: E402
+from repro_torch.core import sal as sal_mod  # noqa: E402
+from repro_torch.core.sal import (sal_compressed, sal_direct,  # noqa: E402
+                                  seeds_from_intervals)
 from repro_torch.core import smem as smem_mod  # noqa: E402
 from repro_torch.core.smem import collect_smems_batch  # noqa: E402
 from repro_torch.data import (decode, make_reference,  # noqa: E402
@@ -221,6 +234,9 @@ N_MEMDIST_READS = 384      # phase 10
 MEMDIST_K = 96 * READ_LEN  # 9,696 bases: 4 chunks of 96 reads
 N_MEMDIST_PAIRS = 128      # phase 11: the first pairs of phase 7
 MEMDIST_PE_K = 64 * 2 * READ_LEN   # 12,928 bases: 2 chunks of 64 pairs
+N_BASELINE_READS = 128     # phase 19: the first reads of phase 5
+N_BASELINE_PAIRS = 32      # and the first pairs of phase 7
+BASELINE_STAGES = ("smem", "sal", "chain", "bsw", "finalize")
 N_SERVE_CLIENTS = 8        # phase 12: 8 clients x 16 reads = 128 reads
 N_SERVE_READS = 16
 N_SERVE_PE_CLIENTS = 4     # then 4 clients x 8 pairs = 32 pairs
@@ -1872,14 +1888,14 @@ def moe_train_flops_per_chip(cfg, B: int, S: int, data: int,
     """Hand count of the products one chip runs in a MoE train step
     (every layer checkpointed; the capacity of the global batch): the
     head's product forward and its two backward ones; each layer's
-    forward, recomputed and its two backward ones.  A layer: q and o on
-    the rank's share of the head columns, k and v on its share of the KV
-    columns, attention with EVERY head (dbrx's 8 KV heads do not divide
-    a 16-wide model axis: ROADMAP Queue 3) and so o's weight gradient on
-    the whole attention output, the router on the rank's tokens, and the
-    expert products on its E/data experts at all C slots and d_ff/model
-    (the down projection is recomputed: the combine's backward needs
-    its output)."""
+    forward, recomputed and its two backward ones.  A layer: q, o and
+    attention on the rank's share of the heads (dbrx's 8 KV heads do not
+    divide a 16-wide model axis: K and V are gathered and each rank
+    attends with its own 3 query heads), k and v on its share of the KV
+    columns, the router on the rank's tokens, and the expert products on
+    its E/data experts at all C slots and d_ff/model (the down
+    projection is recomputed: the combine's backward needs its
+    output)."""
     Bl = B // data
     T = Bl * S
     H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
@@ -1890,11 +1906,10 @@ def moe_train_flops_per_chip(cfg, B: int, S: int, data: int,
 
     def mm(m, k, n):
         return 2 * m * k * n
-    layer_fwd = (mm(T, d, hl + 2 * kvl) + 2 * 2 * Bl * S * S * H * hd
+    layer_fwd = (mm(T, d, hl + 2 * kvl) + 2 * 2 * T * S * hl
                  + mm(T, hl, d) + mm(T, d, E)
                  + El * (2 * mm(C, d, fl) + mm(C, fl, d)))
-    return 3 * mm(T, d, vl) + cfg.n_layers * (
-        4 * layer_fwd - mm(hl, T, d) + mm(H * hd, T, d))
+    return 3 * mm(T, d, vl) + cfg.n_layers * 4 * layer_fwd
 
 
 def smoke_flops_per_chip() -> dict:
@@ -2120,6 +2135,98 @@ def lm_train_mesh_phase(dev) -> None:
           card=smi("name,power.limit").replace(" ", "_"))
 
 
+# ---------------------------------------------------------------------
+# phase 19: the original organisation (the baseline engine)
+# ---------------------------------------------------------------------
+
+def baseline_phase(idx, dev, reads, names, body: list[str], stages: dict,
+                   r1, r2, pes) -> None:
+    """Phase 19: the ``baseline`` engine, the original BWA-MEM (read by
+    read, the scalar SMEM oracle, one compressed-SA LF walk a lookup,
+    the scalar ``ksw_extend``) on the host, with the launch counters at
+    0 just before and read just after: no kernel may launch.  Its SAM of
+    phase 5's first reads must be phase 5's lines, its SAM of phase 7's
+    first pairs (stats frozen from phase 4's rescue sample) the ``cuda``
+    engine's on the card.  Then each stage's seconds a read beside phase
+    5's, and ``sal_compressed`` (both occ layouts) on the card against
+    ``sal_direct`` on the SA rows of phase 5's SMEM."""
+    t_phase = time.perf_counter()
+    n, npairs = N_BASELINE_READS, N_BASELINE_PAIRS
+    base = AlignOptions(engine="baseline", device=str(dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    se = Aligner(idx, base, telemetry=True).align(reads[:n], names=names[:n])
+    se_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pe_base = Aligner(idx, base, pe_stats=pes).align_pairs(r1[:npairs],
+                                                           r2[:npairs])
+    pe_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the baseline engine launched kernels: "
+                             f"{launches}")
+    if se.sam() != lines_of(body, names[:n]):
+        raise AssertionError("baseline SAM differs from phase 5's lines")
+    card_pe = Aligner(idx, device=dev, pe_stats=pes).align_pairs(
+        r1[:npairs], r2[:npairs]).sam()
+    if pe_base.sam() != card_pe:
+        raise AssertionError("baseline PE SAM differs from the cuda "
+                             "engine's")
+    card = smi("name,power.limit").replace(" ", "_")
+    phase("baseline", reads=n, pairs=npairs, se_s=f"{se_s:.3f}",
+          pe_s=f"{pe_s:.3f}", se_s_per_read=f"{se_s / n:.6f}",
+          identical_to_mem=True, identical_to_cuda_pe=True,
+          launches=json.dumps(launches, separators=(",", ":")), card=card)
+    per_read = {}
+    for st in BASELINE_STAGES:
+        b = float(se.stats.get(f"time_{st}_s", 0.0)) / n
+        c = float(stages.get(st, 0.0)) / N_READS
+        per_read[st] = {"baseline_s": round(b, 9), "card_s": round(c, 9),
+                        "ratio": round(b / c, 3) if c else None}
+    phase("baseline_stages", per_read=json.dumps(per_read,
+                                                separators=(",", ":")),
+          card=card)
+
+    # SAL on the card: the LF walk against the uncompressed SA's gather
+    opt = PipelineOptions(device=str(dev))
+    lens = np.full(len(reads), reads.shape[1], np.int64)
+    mems = collect_smems_batch(idx, reads, lens, opt.mem,
+                               occ_fn=attach_occ_config(idx, dev).occ_fn)
+    fm = idx.device(dev)
+    looked_up = []
+
+    def recording(fm, rows):
+        looked_up.append(rows)
+        return sal_direct(fm, rows)
+    sal_mod.sal_direct = recording
+    try:
+        seeds_from_intervals(idx, mems, opt.mem.max_occ, device=dev)
+    finally:
+        sal_mod.sal_direct = sal_direct
+    (rows,) = looked_up
+    direct = sal_direct(fm, rows)
+    walk = {}
+    for layout, eta32 in (("eta32", True), ("eta128", False)):
+        vals, steps = sal_compressed(fm, rows, occ_eta32=eta32)
+        if not torch.equal(vals, direct):
+            raise AssertionError(f"sal_compressed ({layout}) differs from "
+                                 f"sal_direct")
+        walk[layout] = (cuda_ms(lambda e=eta32: sal_compressed(
+            fm, rows, occ_eta32=e)), steps)
+    direct_ms = cuda_ms(lambda: sal_direct(fm, rows))
+    steps = walk["eta32"][1].double()
+    phase("baseline_sal", reads=len(reads), rows=rows.numel(),
+          mean_steps=f"{float(steps.mean()):.3f}",
+          max_steps=int(steps.max()),
+          compressed_eta32_ms=f"{walk['eta32'][0]:.4f}",
+          compressed_eta128_ms=f"{walk['eta128'][0]:.4f}",
+          direct_ms=f"{direct_ms:.4f}",
+          eta32_over_direct=f"{walk['eta32'][0] / direct_ms:.1f}",
+          wall_s=f"{time.perf_counter() - t_phase:.2f}", card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2300,6 +2407,11 @@ def main() -> int:
 
     # 18. a train step on a 1x1 mesh, bit-identical to the unsharded one
     lm_train_mesh_phase(dev)
+
+    # 19. the original organisation (the baseline engine) against phases
+    # 5 and 7, and the compressed SA's walk on the card
+    baseline_phase(idx, dev, reads, names, body, stages, pe_run["r1"],
+                   pe_run["r2"], pes_r)
 
     report = []
     for name, (source, replaces) in KERNELS.items():

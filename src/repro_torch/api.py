@@ -21,7 +21,11 @@ The counterpart of ``repro.api``::
       se(idx, reads, PipelineOptions)                  -> (results, stats)
       pe(idx, r1, r2, PipelineOptions, PEOptions, names) -> (lines, stats)
 
-  "cuda" is the one engine in the tree.
+  "cuda" (the default) is the paper's organisation through the CUDA
+  kernels; "baseline" is the original BWA-MEM organisation (read by
+  read, the scalar oracles), which runs on the host whatever the device
+  and launches no kernel: the yardstick of the paper's speedups.  An
+  engine is chosen by name only; none stands in for another.
 * Results: a structured ``BatchResult`` (SAM body + per-stage stats +
   names + lens + parsed ``AlignmentRecord`` views).
 
@@ -44,6 +48,7 @@ import torch
 
 from . import obs
 from .core.contig import sam_header as _contig_header
+from .core.pipeline import run_pe_baseline, run_se_baseline
 from .core.sam import format_sam
 from .kernels.engine import run_pe_cuda, run_se_cuda
 from .options import AlignOptions, parse_read_group
@@ -96,6 +101,9 @@ def engines() -> list[str]:
     return sorted(_ENGINES)
 
 
+# the original organisation, read by read through the scalar oracles on
+# the host; byte-identical to the reference's "baseline" engine (tested)
+register_engine("baseline", run_se_baseline, run_pe_baseline)
 # the stage-major pipeline with its hot kernels (SMEM occ lookups, BSW
 # blocks, PE mate-rescue blocks) through the CUDA kernels; byte-identical
 # to the reference's "batched" and "pallas" engines (tested on the CPU

@@ -3,6 +3,7 @@
     python -m repro_torch.cli index ref.fa[.gz] [-p PREFIX]
     python -m repro_torch.cli mem  ref.fa reads_1.fq[.gz] [reads_2.fq[.gz]]
                                    [-o out.sam] [--interleaved]
+                                   [--engine cuda|baseline]
                                    [--device cuda|cpu] [--batch-size B]
                                    [-K BASES] [--pe-bootstrap] [--no-pg]
                                    [--shard i/n] [--profile prof.json]
@@ -38,6 +39,10 @@ the whole run.  ``--shard i/n`` keeps only every n-th read (pair), the
 ``repro_torch.dist`` worker partition (by default this process's
 ``torch.distributed`` rank, else everything).  Its SAM is
 byte-identical to ``repro.cli mem --engine pallas`` on the same input.
+``--engine baseline`` runs the original BWA-MEM organisation instead
+(read by read, the scalar oracles, on the host whatever ``--device``
+says): the same SAM, byte for byte, as ``--engine cuda`` and as
+``repro.cli mem --engine baseline``.
 
 ``memdist`` is the resilient multi-shard form of ``mem``
 (``repro_torch.dist.run``): the input is cut into ``-K`` fixed-base
@@ -123,7 +128,8 @@ def _options_from_args(args):
     from .options import AlignOptions, BWA_FLAGS
     flags = {f: getattr(args, "read_group" if f == "-R" else f.lstrip("-"))
              for f in BWA_FLAGS}
-    return AlignOptions.from_flags(flags, device=args.device)
+    return AlignOptions.from_flags(flags, device=args.device,
+                                   engine=args.engine)
 
 
 def _obs_paths(args) -> tuple:
@@ -413,8 +419,13 @@ def cmd_report(args, argv) -> int:
 
 def _add_align_flags(p) -> None:
     """Flags shared by every aligning subcommand (mem, memdist, serve):
-    device selection, fixed-base chunking, @PG suppression, and the bwa
-    alignment flags of ``repro_torch.options.BWA_FLAGS``."""
+    engine and device selection, fixed-base chunking, @PG suppression,
+    and the bwa alignment flags of ``repro_torch.options.BWA_FLAGS``."""
+    p.add_argument("--engine", default="cuda", choices=("cuda", "baseline"),
+                   help="cuda: the paper's organisation through the "
+                        "kernels; baseline: the original BWA-MEM, read by "
+                        "read through the scalar oracles on the host "
+                        "[cuda]")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda: the hand-written kernels on the card (an "
                         "error without one); cpu: their plain PyTorch "

@@ -16,7 +16,9 @@ of the kernel.
 
 ``pack_tasks`` lays a task list out as the padded (W, qmax)/(W, tmax)
 arrays both take; ``bsw_extend_tasks`` is the length-sorted block driver
-shared by the pipeline's executor.
+shared by the pipeline's executor; ``wasted_cell_stats`` counts the
+useful and the computed DP cells of a blocking (the paper's Table 8).
+The ``baseline`` engine runs ``bsw_extend`` itself, one task at a time.
 """
 
 from __future__ import annotations
@@ -390,3 +392,16 @@ def sort_tasks_by_length(qlens: np.ndarray, tlens: np.ndarray) -> np.ndarray:
     Radix-style two-key sort (target-major) returning the permutation.
     """
     return np.lexsort((np.asarray(qlens), np.asarray(tlens)))
+
+
+def wasted_cell_stats(qlens, tlens, order, block: int = 128):
+    """Table-8-style accounting: useful vs computed DP cells per block."""
+    qlens = np.asarray(qlens)[order]
+    tlens = np.asarray(tlens)[order]
+    total = useful = 0
+    for s in range(0, len(qlens), block):
+        qb = qlens[s:s + block]
+        tb = tlens[s:s + block]
+        total += int(qb.max()) * int(tb.max()) * len(qb)
+        useful += int((qb * tb).sum())
+    return useful, total

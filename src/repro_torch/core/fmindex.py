@@ -130,12 +130,49 @@ class FMIndex:
             return 0
         return int(self._occ_prefix[i + 1, c])
 
+    def backward_ext(self, k: int, l: int, s: int, c: int):
+        """Bi-interval of cX given bi-interval (k,l,s) of X. Returns (k,l,s)."""
+        if c > 3:
+            return (k, l, 0)
+        ks, ss = [], []
+        for cc in range(4):
+            o1 = self.occ(cc, k - 1)
+            o2 = self.occ(cc, k + s - 1)
+            ks.append(int(self.C[cc]) + o1)
+            ss.append(o2 - o1)
+        sent = 1 if (k <= self.primary < k + s) else 0
+        l3 = l + sent
+        l2 = l3 + ss[3]
+        l1 = l2 + ss[2]
+        l0 = l1 + ss[1]
+        ls = [l0, l1, l2, l3]
+        return (ks[c], ls[c], ss[c])
+
+    def forward_ext(self, k: int, l: int, s: int, c: int):
+        if c > 3:
+            return (k, l, 0)
+        l2, k2, s2 = self.backward_ext(l, k, s, 3 - c)
+        return (k2, l2, s2)
+
     def init_interval(self, c: int):
         """Bi-interval of the single-base string c."""
         if c > 3:
             return (0, 0, 0)
         cnt = int(self.C[c + 1] - self.C[c]) if c < 3 else int(self.N - self.C[3])
         return (int(self.C[c]), int(self.C[3 - c]), cnt)
+
+    def sa_lookup_compressed(self, i: int) -> tuple[int, int]:
+        """Baseline SAL: walk LF-mapping until a sampled row. Returns (value, steps)."""
+        t = 0
+        j = i
+        while j % SA_SAMPLE != 0:
+            # LF(j) = C[B[j]] + Occ(B[j], j-1); LF of the primary row is row 0.
+            b = int(self.bwt[j])
+            if b == SENTINEL:
+                return (t % self.N, t)  # SA[primary] = 0 -> value = t
+            j = int(self.C[b]) + self.occ(b, j - 1)
+            t += 1
+        return ((int(self.sa_sampled[j // SA_SAMPLE]) + t) % self.N, t)
 
     def device(self, dev) -> FMArrays:
         """The index's tensors on ``dev``, built on first use and cached

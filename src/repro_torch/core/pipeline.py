@@ -1,24 +1,35 @@
 """BWA-MEM pipeline: SMEM -> SAL -> CHAIN -> BSW -> SAM-FORM.
 
-The PyTorch counterpart of ``repro.core.pipeline``'s stage-major
-drivers (``run_se_batched``, the paper's Fig 2 right, and
-``run_pe_batched``, which runs both ends through it and then the
-paired-end tail of ``repro_torch.pe``): every stage runs
-over the WHOLE batch before the next stage; lockstep-batched SMEM whose
-occ lookups run on the device, a single-gather SAL on the device, and
-inter-task BSW with length-sorting (§5.3.1) through the bsw kernel.
-Extension decisions that bwa makes sequentially (skip-if-contained;
-band-doubling retry) are replayed AFTER batched extension, exactly like
-bwa-mem2 (§5.3.2).
+The PyTorch counterpart of ``repro.core.pipeline``.  Two organisations
+with IDENTICAL output, registered as the ``cuda`` and ``baseline``
+engines of ``repro_torch.api``:
+
+* ``run_se_batched`` / ``run_pe_batched`` — the paper's reorganisation
+  (Fig 2 right; PE runs both ends through it and then the paired-end
+  tail of ``repro_torch.pe``): every stage runs over the WHOLE batch
+  before the next stage; lockstep-batched SMEM whose occ lookups run on
+  the device, a single-gather SAL on the device, and inter-task BSW with
+  length-sorting (§5.3.1) through the bsw kernel.  Extension decisions
+  that bwa makes sequentially (skip-if-contained; band-doubling retry)
+  are replayed AFTER batched extension, exactly like bwa-mem2 (§5.3.2).
+  PE mate rescue reuses ``BatchedBSWExecutor``, so its extensions go
+  through the same kernel.
+
+* ``run_se_baseline`` / ``run_pe_baseline`` — the original BWA-MEM
+  organisation (Fig 2 left), the yardstick of the paper's speedups:
+  each read runs through every stage before the next read starts, with
+  the scalar oracles on the host whatever ``device`` says (the SMEM
+  oracle over ``FMIndex.occ``, one compressed-SA LF walk a lookup,
+  ``bsw_extend`` inline, scalar mate rescue).  It launches no kernel.
 
 The decision logic (``chain2aln``, the executor, ``mark_and_finalize``)
 is the reference's own code, so the SAM is byte-identical to the
-reference's ``batched`` and ``pallas`` engines.  PE mate rescue reuses
-``BatchedBSWExecutor``, so its extensions go through the same kernel.
+reference's ``baseline``, ``batched`` and ``pallas`` engines.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 from typing import Callable
@@ -28,7 +39,7 @@ import numpy as np
 from .. import obs
 from . import smem as smem_mod
 from . import sal as sal_mod
-from .bsw import BSWParams, bsw_extend_tasks
+from .bsw import BSWParams, ExtResult, bsw_extend, bsw_extend_tasks
 from .chain import Chain, ChainOptions, chain_seeds, filter_chains
 from .contig import block_bounds, contig_edges
 from .fmindex import FMIndex
@@ -197,6 +208,21 @@ def chain2aln(chain: Chain, query: np.ndarray, idx: FMIndex,
 # ---------------------------------------------------------------------
 # BSW executors
 # ---------------------------------------------------------------------
+
+# ---------------------------------------------------------------------
+# BSW executors
+# ---------------------------------------------------------------------
+
+def _bsw_immediate(p: BSWParams):
+    """Baseline executor: scalar oracle, executed inline (read-major)."""
+    def fn(side, seed_id, rnd, q, t, h0, w):
+        if len(q) == 0 or len(t) == 0:
+            # ksw_extend is never called with empty sequences in bwa; an
+            # empty target means no room to extend: mirror a no-op result
+            return ExtResult(h0, 0, 0, 0, -1, 0)
+        return bsw_extend(q, t, h0, p, w)
+    return fn
+
 
 class BatchedBSWExecutor:
     """Optimized executor (paper §5.3): pre-plans every (seed, side, round)
@@ -440,6 +466,65 @@ def occ_fn_for(idx: FMIndex, opt: PipelineOptions):
     return attach_occ_config(idx, opt.device).occ_fn
 
 
+def run_se_baseline(idx: FMIndex, reads: np.ndarray,
+                    opt: PipelineOptions = PipelineOptions()):
+    """Original organisation: per-read, the scalar oracles on the host
+    (SMEM over ``FMIndex.occ``, one compressed-SA LF walk a lookup,
+    ``bsw_extend`` inline), whatever ``opt.device`` says.  Returns (list
+    per read of Alignment, stats)."""
+    S = idx.seq
+    l_pac = idx.n_ref
+    edges = contig_edges(idx)
+    elist = edges.tolist()          # scalar bisect beats np in this loop
+    stats = obs.Snapshot(sa_lookups=0, bsw_tasks=0)
+    bsw_fn_factory = _bsw_immediate(opt.bsw)
+    results = []
+    for r in range(len(reads)):
+        q = reads[r]
+        with obs.span("smem"):
+            mems = smem_mod.collect_smems(idx, q, opt.mem)
+            frep = smem_mod.frac_rep(mems, len(q), opt.mem.max_occ)
+        # SAL (compressed baseline, one lookup at a time)
+        with obs.span("sal"):
+            seeds = []
+            for (k, l, s, qb, qe) in mems:
+                step = s // opt.mem.max_occ if s > opt.mem.max_occ else 1
+                cnt = 0
+                kk = 0
+                while kk < s and cnt < opt.mem.max_occ:
+                    rbeg, _ = idx.sa_lookup_compressed(k + kk)
+                    stats["sa_lookups"] += 1
+                    slen = qe - qb
+                    # same-block test (bwa's boundary-bridging seed drop;
+                    # the scalar form of core.contig.seed_within_contig)
+                    if bisect.bisect_right(elist, rbeg) == \
+                            bisect.bisect_right(elist, rbeg + slen - 1):
+                        seeds.append((int(rbeg), qb, slen))
+                    kk += step
+                    cnt += 1
+        with obs.span("chain"):
+            chains = filter_chains(chain_seeds(seeds, l_pac, opt.chain,
+                                               edges), opt.chain)
+        alns: list[Alignment] = []
+        counting = [0]
+
+        def counting_fn(side, seed_id, rnd, qq, tt, h0, w,
+                        _f=bsw_fn_factory, _c=counting):
+            _c[0] += 1
+            return _f(side, seed_id, rnd, qq, tt, h0, w)
+        with obs.span("bsw"):
+            for c in chains:
+                alns.extend(chain2aln(c, q, idx, opt.bsw, counting_fn))
+        stats["bsw_tasks"] += counting[0]
+        with obs.span("finalize"):
+            results.append(mark_and_finalize(alns, q, S, l_pac, opt.bsw,
+                                             opt.mem.min_seed_len, frep=frep,
+                                             min_score=opt.min_score,
+                                             all_hits=opt.all_hits,
+                                             softclip_supp=opt.softclip_supp))
+    return results, stats
+
+
 def run_se_batched(idx: FMIndex, reads: np.ndarray,
                    opt: PipelineOptions = PipelineOptions()):
     """Paper's organisation (Fig 2 right): stage-major over the batch."""
@@ -495,6 +580,23 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
 
 
 
+def run_pe_baseline(idx: FMIndex, reads1: np.ndarray,
+                    reads2: np.ndarray,
+                    opt: PipelineOptions = PipelineOptions(),
+                    pe_opt=None, names=None):
+    """Paired-end baseline: per-read scalar SE alignment of both ends,
+    then insert-size estimation, SCALAR mate rescue and pair-aware SAM
+    emission.  Returns (sam_lines, stats)."""
+    from ..pe import pair_pipeline   # deferred: repro_torch.pe imports this
+    res1, s1 = run_se_baseline(idx, reads1, opt)
+    res2, s2 = run_se_baseline(idx, reads2, opt)
+    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
+                                  pe_opt, batched=False, names=names)
+    stats = obs.Snapshot.merge_all([s1, s2])
+    stats.update(pstats)
+    return lines, stats
+
+
 def run_pe_batched(idx: FMIndex, reads1: np.ndarray,
                    reads2: np.ndarray,
                    opt: PipelineOptions = PipelineOptions(),
@@ -510,7 +612,7 @@ def run_pe_batched(idx: FMIndex, reads1: np.ndarray,
     res, s = run_se_batched(idx, both, opt)
     res1, res2 = res[:n], res[n:]
     lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
-                                  pe_opt, names=names)
+                                  pe_opt, batched=True, names=names)
     stats = obs.Snapshot(s)
     stats.update(pstats)
     return lines, stats

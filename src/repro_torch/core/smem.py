@@ -1,16 +1,23 @@
-"""SMEM search (paper §2.3/§4.2; port of bwa smem1), batched in lockstep.
+"""SMEM search (paper §2.3/§4.2, Algorithms 2-4; faithful port of bwa smem1).
 
-The PyTorch counterpart of ``repro.core.smem``'s batched half:
-``smem1_batch`` / ``seed_strategy1_batch`` / ``collect_smems_batch`` —
-the paper's *batched* reorganization (§3.1 + §4.3): many independent
-(read, start-position) SMEM tasks advance in lockstep rounds; each round
-performs ONE vectorized backward/forward extension for every live task.
-The task state stays on the host in numpy int64.  Each round sends
-only its live entries — the ones whose results the loop reads — to the
-index's device as one (4, n) int32 (k, l, s, c) tensor, runs the whole
-extension there (``kernels.fmocc.ext_round``: one launch of the fused
-round kernel, every occ lookup inside it) and brings (3, n) (k', l', s')
-back in one copy — one device round trip per round.
+The PyTorch counterpart of ``repro.core.smem``.  Two implementations
+with IDENTICAL output (the paper's hard requirement):
+
+* ``smem1`` / ``seed_strategy1`` / ``collect_smems`` — scalar oracle,
+  a direct port of bwa-0.7.x ``bwt_smem1a`` / ``bwt_seed_strategy1`` /
+  ``mem_collect_intv`` semantics over the host's ``FMIndex.occ``; the
+  ``baseline`` engine's seeding.
+
+* ``smem1_batch`` / ``seed_strategy1_batch`` / ``collect_smems_batch`` —
+  the paper's *batched* reorganization (§3.1 + §4.3): many independent
+  (read, start-position) SMEM tasks advance in lockstep rounds; each round
+  performs ONE vectorized backward/forward extension for every live task.
+  The task state stays on the host in numpy int64.  Each round sends
+  only its live entries — the ones whose results the loop reads — to the
+  index's device as one (4, n) int32 (k, l, s, c) tensor, runs the whole
+  extension there (``kernels.fmocc.ext_round``: one launch of the fused
+  round kernel, every occ lookup inside it) and brings (3, n) (k', l', s')
+  back in one copy — one device round trip per round.
 
 An SMEM is reported as (k, l, s, qbeg, qend): bi-interval + query span.
 """
@@ -59,6 +66,149 @@ def frac_rep(mems, l_query: int, max_occ: int) -> float:
             e = max(e, qe)
     l_rep += e - b
     return l_rep / l_query if l_query else 0.0
+
+
+# =====================================================================
+# Scalar oracle (port of bwt_smem1a with max_intv=0)
+# =====================================================================
+
+def smem1(idx: FMIndex, q: np.ndarray, x: int, min_intv: int = 1):
+    """All SMEMs overlapping position x. Returns (smems, ret).
+
+    smems: list of (k, l, s, qbeg, qend); ret: next start position for the
+    caller's x-loop (end of the longest forward extension from x).
+    """
+    L = len(q)
+    if q[x] > 3:
+        return [], x + 1
+    min_intv = max(min_intv, 1)
+    ik = idx.init_interval(int(q[x]))
+    ik_end = x + 1
+    curr: list[tuple[int, int, int, int]] = []   # (k, l, s, end)
+    i = x + 1
+    broke = False
+    while i < L:
+        b = int(q[i])
+        if b > 3:                       # ambiguous base: stop fwd extension
+            curr.append((*ik, ik_end))
+            broke = True
+            break
+        ok = idx.forward_ext(*ik, b)
+        if ok[2] != ik[2]:              # interval size changed
+            curr.append((*ik, ik_end))
+            if ok[2] < min_intv:
+                broke = True
+                break
+        ik = ok
+        ik_end = i + 1
+        i += 1
+    if not broke:
+        curr.append((*ik, ik_end))
+    curr.reverse()                      # longest forward match first
+    ret = curr[0][3]
+
+    prev = curr
+    mems: list[tuple[int, int, int, int, int]] = []
+    i = x - 1
+    while i >= -1:
+        c = -1 if (i < 0 or q[i] > 3) else int(q[i])
+        curr = []
+        for (k, l, s, end) in prev:
+            ok = idx.backward_ext(k, l, s, c) if c >= 0 else (0, 0, 0)
+            if c < 0 or ok[2] < min_intv:
+                if not curr:            # no longer match survived this round
+                    if not mems or i + 1 < mems[-1][3]:
+                        mems.append((k, l, s, i + 1, end))
+            elif not curr or ok[2] != curr[-1][2]:
+                curr.append((ok[0], ok[1], ok[2], end))
+        if not curr:
+            break
+        prev = curr
+        i -= 1
+    mems.reverse()                      # sorted by start coordinate
+    return mems, ret
+
+
+def seed_strategy1(idx: FMIndex, q: np.ndarray, x: int, min_len: int,
+                   max_intv: int):
+    """Port of bwt_seed_strategy1 (bwa's 3rd seeding round). -> (mem|None, ret)."""
+    L = len(q)
+    if q[x] > 3:
+        return None, x + 1
+    ik = idx.init_interval(int(q[x]))
+    for i in range(x + 1, L):
+        b = int(q[i])
+        if b > 3:
+            return None, i + 1
+        ok = idx.forward_ext(*ik, b)
+        if ok[2] < max_intv and i - x >= min_len:
+            if ok[2] > 0:
+                return (ok[0], ok[1], ok[2], x, i + 1), i + 1
+            return None, i + 1
+        ik = ok
+    return None, L
+
+
+def collect_smems(idx: FMIndex, q: np.ndarray, opt: MemOptions):
+    """Port of mem_collect_intv: 3 seeding passes; sorted (qbeg,qend) order."""
+    L = len(q)
+    mem: list[tuple[int, int, int, int, int]] = []
+    # pass 1: all SMEMs
+    x = 0
+    while x < L:
+        if q[x] < 4:
+            ms, x = smem1(idx, q, x, 1)
+            mem.extend(m for m in ms if m[4] - m[3] >= opt.min_seed_len)
+        else:
+            x += 1
+    # pass 2: re-seed long, low-occurrence SMEMs
+    old = list(mem)
+    for (k, l, s, qb, qe) in old:
+        if qe - qb < opt.split_len or s > opt.split_width:
+            continue
+        ms, _ = smem1(idx, q, (qb + qe) >> 1, s + 1)
+        mem.extend(m for m in ms if m[4] - m[3] >= opt.min_seed_len)
+    # pass 3: LAST-like forward-only seeds
+    if opt.max_mem_intv > 0:
+        x = 0
+        while x < L:
+            if q[x] < 4:
+                m, x = seed_strategy1(idx, q, x, opt.min_seed_len,
+                                      opt.max_mem_intv)
+                if m is not None:
+                    mem.append(m)
+            else:
+                x += 1
+    mem.sort(key=lambda m: (m[3], m[4]))
+    return mem
+
+
+def brute_smems(idx: FMIndex, q: np.ndarray):
+    """Brute-force SMEMs by definition (tests only): strictly-increasing
+    records of E(s) = longest exact match starting at s."""
+    S = idx.seq
+    L = len(q)
+    E = np.zeros(L, dtype=np.int64)
+    text = S.tobytes()
+    for s in range(L):
+        if q[s] > 3:
+            E[s] = s
+            continue
+        lo, hi = s + 1, L
+        # extend greedily: find max e such that q[s:e] occurs in S
+        e = s
+        while e < L and q[e] <= 3:
+            if text.find(q[s:e + 1].tobytes()) < 0:
+                break
+            e += 1
+        E[s] = e
+    out = []
+    best = -1
+    for s in range(L):
+        if E[s] > s and E[s] > best:
+            out.append((s, int(E[s])))
+            best = E[s]
+    return out
 
 
 # =====================================================================

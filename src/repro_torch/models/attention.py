@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
-from ..dist.api import (along, constrain, current_mesh, local_apply,
-                        replicated)
+from ..dist.api import (along, batch_mesh_axes, constrain, current_mesh,
+                        local_apply, replicated)
+from ..dist.sharding import rules_for
 from .layers import apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -80,14 +81,59 @@ def _heads(q, k, v, positions, cfg):
 
 
 def _head_axis(cfg, mesh) -> str | None:
-    """``"model"`` when the heads split evenly over the mesh's model
-    axis (each rank then attends with its own query and KV heads, the
-    tensor-parallel layout), else None (every rank attends with all)."""
-    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) \
-        if mesh is not None else 1
-    if m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+    """``"model"`` when the query heads split evenly over the mesh's
+    model axis and the specs' rules head-shard the projections (their
+    flat widths divide it: ``rules_for``'s ``heads_ok``): each rank then
+    attends with its own query heads, the tensor-parallel layout.  Else
+    None (every rank attends with all), as where the batch takes the
+    model axis too (``dp_all``)."""
+    if mesh is None or "model" in batch_mesh_axes(mesh):
+        return None
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    if m > 1 and cfg.n_heads % m == 0 and rules_for(cfg, mesh).heads_ok:
         return "model"
     return None
+
+
+def _kv_split(cfg, mesh) -> tuple[int, int] | None:
+    """Where ``_head_axis`` splits the query heads but the KV heads do
+    not divide the model axis (a rank's share of K and V may be part of
+    a head): ``(r, Hl)``, this rank's place on ``model`` and its count
+    of query heads.  K and V are then gathered over ``model`` and each
+    rank slices the KV heads its query heads read (``_my_kv``).  Else
+    None: each rank's share of K and V is whole KV heads, its own."""
+    if _head_axis(cfg, mesh) is None:
+        return None
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    if cfg.n_kv_heads % m == 0:
+        return None
+    return mesh.get_local_rank("model"), cfg.n_heads // m
+
+
+def _layout(cfg):
+    """``(h, split, kvh)`` under the current mesh: the query heads' axis
+    (``_head_axis``), ``_kv_split``'s answer, and the K and V heads'
+    axis (None where they are gathered)."""
+    mesh = current_mesh()
+    h = _head_axis(cfg, mesh)
+    split = _kv_split(cfg, mesh)
+    return h, split, None if split is not None else h
+
+
+def _my_kv(k, v, cfg, r: int, Hl: int):
+    """K and V (B, S, KH, hd), whole, cut to what query heads
+    [r·Hl, (r+1)·Hl) read: KV heads [r·Hl // G, ((r+1)·Hl - 1) // G]
+    (G = H / KH), so ranks with fewer than G heads share one.  Where
+    those KV heads serve unequal numbers of the rank's query heads, one
+    KV head a query head, so that the core's grouping holds."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = [(r * Hl + j) // G - lo for j in range(Hl)]
+    n = hi - lo
+    if Hl % n or idx != [j // (Hl // n) for j in range(Hl)]:
+        k, v = k[:, :, idx], v[:, :, idx]
+    return k, v
 
 
 def _pos_axes(positions):
@@ -142,20 +188,28 @@ def attn_forward(p, x, cfg, positions, *, q_block=512, kv_block=512):
     """Training / prefill attention (no cache). Returns (out, (k, v)).
 
     Under a mesh the rotations and the attention core run on each rank's
-    batch shard and, where ``_head_axis`` allows, its heads."""
+    batch shard and, where ``_head_axis`` allows, its query heads.  Where
+    the KV heads do not divide the model axis (``_kv_split``), K and V
+    are gathered over it (the gather's backward reduce-scatters their
+    gradients) and each rank slices the KV heads its query heads read;
+    the returned K and V are then whole over ``model``.  Either way each
+    rank's output is its own heads' columns, and ``o`` runs as a
+    row-split product."""
+    h, split, kvh = _layout(cfg)
+
     def core(q, k, v, positions):
         q, k, v = _heads(q, k, v, positions, cfg)
-        o = flash_attention(q, k, v, causal=True,
+        kk, vv = (k, v) if split is None else _my_kv(k, v, cfg, *split)
+        o = flash_attention(q, kk, vv, causal=True,
                             q_block=q_block, kv_block=kv_block)
         B, S, H, D = o.shape
         return o.reshape(B, S, H * D), k, v
 
-    h = _head_axis(cfg, current_mesh())
-    flat = ("batch", None, h)
+    flat, kv_flat = ("batch", None, h), ("batch", None, kvh)
     o, k, v = local_apply(core, (*_project(p, x, cfg), positions),
-                          [flat, flat, flat, _pos_axes(positions)],
-                          [flat, ("batch", None, h, None),
-                           ("batch", None, h, None)])
+                          [flat, kv_flat, kv_flat, _pos_axes(positions)],
+                          [flat, ("batch", None, kvh, None),
+                           ("batch", None, kvh, None)])
     return o @ p["wo"], (k, v)
 
 
@@ -201,29 +255,36 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
     Softmax runs over the full static cache with the unclamped
     ``arange(Smax) <= pos`` mask.  Under a mesh each rank attends over
     its batch shard of the cache with, where ``_head_axis`` allows, its
-    own query heads and their KV heads (sliced from the cache, which is
-    whole over ``model``); the new K and V are laid out as the cache is
-    before they are written.
+    own query heads and the KV heads they read (sliced from the cache,
+    which is whole over ``model``); the new K and V are laid out as the
+    cache is before they are written (gathered over ``model`` before
+    they are rotated where ``_kv_split`` gives a rank part of a head).
     """
     B = x.shape[0]
     shape = (B, 1) if cfg.rope != "mrope" else (3, B, 1)
     positions = replicated(torch.full(shape, pos, dtype=torch.int32,
                                       device=x.device), x)
-    h = _head_axis(cfg, current_mesh())
-    flat = ("batch", None, h)
-    heads = ("batch", None, h, None)
+    h, split, kvh = _layout(cfg)
+    flat, kv_flat = ("batch", None, h), ("batch", None, kvh)
+    heads, kv_heads = ("batch", None, h, None), ("batch", None, kvh, None)
     q, k_new, v_new = local_apply(
         lambda q, k, v, pos_: _heads(q, k, v, pos_, cfg),
         (*_project(p, x, cfg), positions),
-        [flat, flat, flat, _pos_axes(positions)], [heads, heads, heads])
-    if h is not None:
+        [flat, kv_flat, kv_flat, _pos_axes(positions)],
+        [heads, kv_heads, kv_heads])
+    if kvh is not None:
         k_new = constrain(k_new, "batch", None, None, None)
         v_new = constrain(v_new, "batch", None, None, None)
     Smax = cache_k.shape[1]
     at = min(max(int(pos), 0), Smax - 1)
     _write_at(cache_k, at, k_new)
     _write_at(cache_v, at, v_new)
-    o = local_apply(lambda q, ck, cv: _decode_core(q, ck, cv, pos, x.dtype),
-                    (q, cache_k, cache_v), [heads, heads, heads], flat)
+
+    def core(q, ck, cv):
+        if split is not None:
+            ck, cv = _my_kv(ck, cv, cfg, *split)
+        return _decode_core(q, ck, cv, pos, x.dtype)
+    o = local_apply(core, (q, cache_k, cache_v),
+                    [heads, kv_heads, kv_heads], flat)
     o = o @ p["wo"]
     return o, cache_k, cache_v

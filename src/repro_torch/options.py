@@ -35,6 +35,7 @@ from .core.smem import MemOptions
 from .pe.rescue import PEOptions
 
 ENGINE_CUDA = "cuda"
+ENGINE_BASELINE = "baseline"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,12 +5,14 @@ Stages:
 
 1. insert-size estimation from high-confidence unique pairs (pestat.py);
 2. mate rescue — insert-window banded SW for unmapped/inconsistent mates,
-   length-sorted inter-task batches through the pipeline's BSW executor,
-   so through the bsw kernel on the pipeline's device (rescue.py);
+   scalar per-pair baseline vs. length-sorted inter-task batches through
+   the pipeline's BSW executor, so through the bsw kernel on the
+   pipeline's device (rescue.py);
 3. pair scoring/selection and pair-aware SAM emission with proper-pair
    FLAG/RNEXT/PNEXT/TLEN fields (pairing.py).
 
-The entry point is ``run_pe_batched`` in ``repro_torch.core.pipeline``.
+The entry points are ``run_pe_batched`` and ``run_pe_baseline`` in
+``repro_torch.core.pipeline``.
 """
 
 from .. import obs
@@ -19,14 +21,15 @@ from .pestat import (PairStat, estimate_pestat, infer_dir,  # noqa: F401
                      pestat_from_jsonable, pestat_to_jsonable)
 from .rescue import (PEOptions, RescueTask, best_diag_seed,  # noqa: F401
                      merge_rescues, plan_rescues, rescue_window,
-                     run_rescues_batched)
+                     run_rescues_batched, run_rescues_scalar)
 from .pairing import (blend_mapq, emit_pair, pair_score,  # noqa: F401
                       raw_mapq, select_pair)
 
 
 def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
-                  names=None):
-    """Shared PE tail: pestat -> batched rescue -> pairing -> SAM.
+                  batched: bool, names=None):
+    """Shared PE tail: pestat -> rescue (scalar or batched) -> pairing ->
+    SAM.
     ``res1``/``res2`` are the per-end alignment lists from the SE stage
     and are extended IN PLACE with rescued alignments.
 
@@ -46,10 +49,13 @@ def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
             pes = estimate_pestat(res1, res2, idx, max_ins=peopt.max_ins)
     with obs.span("pe_rescue"):
         tasks = plan_rescues((res1, res2), (reads1, reads2), pes, idx, peopt)
-        outs, rstats = run_rescues_batched(tasks, idx, p,
-                                           batch_fn=bsw_batch_fn(opt),
-                                           block=opt.bsw_block,
-                                           sort=opt.bsw_sort)
+        if batched:
+            outs, rstats = run_rescues_batched(tasks, idx, p,
+                                               batch_fn=bsw_batch_fn(opt),
+                                               block=opt.bsw_block,
+                                               sort=opt.bsw_sort)
+        else:
+            outs, rstats = run_rescues_scalar(tasks, idx, p)
         n_rescued = merge_rescues((res1, res2), tasks, outs, idx, p,
                                   opt.mem.min_seed_len, peopt)
     lines: list[str] = []

@@ -1,9 +1,12 @@
-"""Mate rescue (mem_matesw port): the batched driver.
+"""Mate rescue (mem_matesw port): the scalar baseline and the batched
+driver.
 
 When one mate is unmapped (or has no alignment consistent with the
 estimated insert-size distribution), bwa scans the window implied by its
 partner's position and the per-orientation insert bounds and runs SW
-against the reference there.  ``run_rescues_batched`` organises that as
+against the reference there.  ``run_rescues_scalar`` (the ``baseline``
+engine's) runs each extension inline through the scalar oracle, task by
+task, as the original does.  ``run_rescues_batched`` organises it as
 the paper's inter-task scheme (§5.3.1): every left/right extension of
 every rescue task across the WHOLE batch is collected, length-sorted and
 dispatched through the pipeline's ``BatchedBSWExecutor`` (so through the
@@ -17,9 +20,7 @@ the rescue window, and the anchor seed is extended left/right exactly
 like a one-seed chain through ``chain2aln``, so rescue output obeys the
 same extension spec as the main pipeline.
 
-A copy of ``repro.pe.rescue`` without its scalar driver
-(``run_rescues_scalar``), which only the reference's ``baseline`` engine
-runs.
+A copy of ``repro.pe.rescue``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from .. import obs
 from ..core.bsw import BSWParams
 from ..core.chain import Chain
 from ..core.contig import block_bounds, same_contig
-from ..core.pipeline import (BatchedBSWExecutor, approx_mapq, chain2aln,
-                             finalize_alignment)
+from ..core.pipeline import (BatchedBSWExecutor, _bsw_immediate,
+                             approx_mapq, chain2aln, finalize_alignment)
 from .pestat import PairStat, infer_dir
 
 
@@ -175,6 +176,23 @@ def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
                                             query=mate))
     obs.count("rescue_planned", len(tasks))
     return tasks
+
+
+def run_rescues_scalar(tasks: list[RescueTask], idx, p: BSWParams):
+    """Baseline: each rescue extension runs the scalar oracle inline."""
+    fn = _bsw_immediate(p)
+    n_ext = [0]
+
+    def counting(side, seed_id, rnd, q, t, h0, w):
+        # count only real extensions, matching the batched executor's
+        # stats (empty-sequence tasks short-circuit in both drivers)
+        if len(q) > 0 and len(t) > 0:
+            n_ext[0] += 1
+        return fn(side, seed_id, rnd, q, t, h0, w)
+
+    outs = [chain2aln(t.chain, t.query, idx, p, counting)
+            for t in tasks]
+    return outs, dict(rescue_tasks=len(tasks), rescue_bsw=n_ext[0])
 
 
 def run_rescues_batched(tasks: list[RescueTask], idx, p: BSWParams, *,

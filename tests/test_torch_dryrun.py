@@ -209,6 +209,63 @@ def test_moe_train_flops_per_chip_equal_a_hand_count():
     assert run.coll.counts["all-to-all"] == 2 * 2 * 2
 
 
+def _split_heads_flops(name: str, shape: str) -> int:
+    """A hand count for rank 0 of a 1x4 mesh (data 1, model 4) running
+    a smoke config of 4 heads and 2 KV heads of 16 (d 64, 2 layers,
+    vocab 256: 64 a rank; d_ff 128: 32 a rank): the KV heads do not
+    divide ``model``, so the rank attends with its ONE query head (and
+    the one KV head it reads), projects q and o on that head's 16
+    columns, k and v on its 8 of the 32 KV columns.  train_smoke (B 8,
+    S 128, no remat): every product forward and its two backward ones;
+    dbrx-132b's expert products run on all 4 experts (data 1) at every
+    one of their C = 640 slots.  decode_smoke (B 8, a cache of 128)."""
+    d, hd, Hl, kvl, fl, Vl = 64, 16, 1, 8, 32, 64
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    if shape == "decode_smoke":
+        Bl, Smax = 8, 128
+        layer = (mm(Bl, d, Hl * hd + 2 * kvl)
+                 + 2 * 2 * Bl * Hl * Smax * hd  # scores and values
+                 + mm(Bl, Hl * hd, d) + 3 * mm(Bl, d, fl))
+        return 2 * layer + mm(Bl, d, Vl)
+    Bl, S = 8, 128
+    T = Bl * S
+    layer = (mm(T, d, Hl * hd + 2 * kvl)        # q, k, v
+             + 2 * 2 * Bl * S * S * Hl * hd     # scores and values
+             + mm(T, Hl * hd, d))               # o
+    if name == "dbrx-132b":
+        E, C = 4, 640
+        layer += mm(T, d, E) + E * (2 * mm(C, d, fl) + mm(C, fl, d))
+    else:
+        layer += 3 * mm(T, d, fl)               # gate, up, down
+    return 3 * (2 * layer + mm(T, d, Vl))
+
+
+@pytest.mark.parametrize("name,shape,want,before", [
+    ("dbrx-132b", "train_smoke", 305_135_616, 468_713_472),
+    ("internlm2-1.8b", "train_smoke", 188_743_680, 352_321_536),
+    ("internlm2-1.8b", "decode_smoke", 491_520, 884_736),
+])
+def test_split_query_heads_flops_per_chip_equal_a_hand_count(
+        name, shape, want, before):
+    """Where the KV heads do not divide ``model`` each rank attends with
+    its own query heads (``before``: the count when every rank attended
+    with all 4 heads and ran o's weight gradient on the whole output).
+    In training, K's and V's gradients are reduce-scattered back to the
+    rank's columns, once a layer each."""
+    from torch.distributed.device_mesh import init_device_mesh
+    assert _split_heads_flops(name, shape) == want < before
+    cfg = dryrun.pad_vocab(smoke_config(name))
+    assert (cfg.n_heads, cfg.n_kv_heads) == (4, 2)
+    with placeholder_world(4, "cpu"):
+        mesh = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES[shape], mesh,
+                               q_block=64, kv_block=64)
+    assert run.flops == want
+    if shape == "train_smoke":
+        assert run.coll.counts["reduce-scatter"] == 2 * 2
+
+
 def test_ssm_prefill_flops_per_chip_equal_a_hand_count():
     """prefill_smoke of the smoke mamba2-130m (2 layers of d 64, d_in
     128 in 8 heads of 16, state 16, one group, a packed in_proj of 296
@@ -317,6 +374,43 @@ def train_flops_hand_count():
     want = 3 * mm(T, d, vl) + L * (4 * fwd - mm(T, fl, d))
     assert want == 19_955_491_799_040
     return want
+
+
+def moe_train_flops_hand_count():
+    """The products one chip of 256 runs in a dbrx-132b train_4k step on
+    16x16 (d 6144, 48 heads and 8 KV heads of 128, 16 experts of d_ff
+    10,752, top-4, vocab 100,352, 40 layers; 16 sequences of 4,096
+    tokens a chip; one 4,096-row attention block; every layer
+    checkpointed): the head forward and its two backward products; every
+    layer forward, recomputed and its two backward products.  A layer:
+    q and o on the rank's 3 of the 48 heads (the 8 KV heads do not
+    divide the 16-wide model axis, so K and V are gathered and each rank
+    attends with its own query heads), k and v on its 64 of the 1,024 KV
+    columns, the router on its tokens, the expert products on its 1 of
+    16 experts at every one of the C = 327,680 slots and 672 of d_ff
+    (the down projection is recomputed: the combine's backward needs
+    its output).  Attending with every head counted
+    2,672,534,810,001,408."""
+    T, S, d, hl, kvl, L = 16 * 4096, 4096, 6144, 384, 64, 40
+    E, C, fl, vl = 16, 256 * 4096 * 4 * 5 // (4 * 16), 672, 6272
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    fwd = (mm(T, d, hl + 2 * kvl) + mm(T, hl, d)  # q, k, v; o
+           + 2 * 2 * T * S * hl                 # scores and values
+           + mm(T, d, E)                        # router
+           + 2 * mm(C, d, fl) + mm(C, fl, d))   # the rank's expert
+    want = 3 * mm(T, d, vl) + L * 4 * fwd
+    assert want == 1_497_431_757_815_808
+    return want
+
+
+def test_moe_production_cell_count():
+    rec = dryrun.lower_cell("dbrx-132b", "train_4k", False, device="cpu",
+                            q_block=4096, kv_block=4096)
+    assert rec["cost"]["flops"] == moe_train_flops_hand_count()
+    # K's and V's gradients are reduce-scattered back to the rank's KV
+    # columns, in each of the 40 layers
+    assert rec["collectives"]["counts"]["reduce-scatter"] >= 2 * 40
+    assert not dist.is_initialized()
 
 
 def test_production_cell_cli(tmp_path):
@@ -548,6 +642,112 @@ def test_sharded_numerics_on_a_2x2_gloo_mesh():
         for got, ref in zip(r["grads"], rg):
             scale = np.abs(ref).max() or 1.0
             assert np.abs(got - ref).max() <= TOL * scale, name
+
+
+SPLIT_ARCH, SPLIT_DECODE_STEPS = "internlm2-1.8b", 16
+
+
+def _split_heads_worker(rank, port, out_q):
+    """One of 4 ranks of a 1x4 gloo mesh (``model`` 4): the smoke
+    internlm2-1.8b's 4 query heads split one a rank while its 2 KV heads
+    do not divide the axis (each rank holds half of one in K and V).
+    Forward, loss and gradients, and 16 decode steps with the cache split
+    by batch and then by sequence too, sharded against unsharded; rank 0
+    reports the largest differences and the ranks' head layout."""
+    from repro_torch.dist.api import active_mesh
+    from repro_torch.dist.sharding import (distribute, make_batch_specs,
+                                           make_cache_specs,
+                                           make_param_specs, rules_for)
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import attention
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        cfg = _f32(smoke_config(SPLIT_ARCH))
+        params, axes = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+        batch = synthetic_batch(cfg, B, S, 0, device="cpu")
+        kw = dict(q_block=BLOCK, kv_block=BLOCK)
+        logits = lm.forward(params, cfg, batch, **kw)
+        loss, grads = loss_and_grads(params, cfg, batch, **kw)
+        rules = rules_for(cfg, mesh)
+        with active_mesh(mesh):
+            layout = (attention._head_axis(cfg, mesh),
+                      attention._kv_split(cfg, mesh))
+            sp = distribute(params, make_param_specs(axes, params, mesh,
+                                                     rules))
+            sb = distribute(batch, make_batch_specs(batch, mesh))
+            slogits = lm.forward(sp, cfg, sb, **kw)
+            sloss, sgrads = loss_and_grads(sp, cfg, sb, **kw)
+        diff = {"logits": float(np.abs(_np(slogits) - _np(logits)).max()),
+                "loss": abs(float(_np(sloss)) - float(loss)),
+                "grads": max(float(np.abs(_np(a) - _np(b)).max())
+                             for a, b in zip(_leaves(sgrads),
+                                             _leaves(grads)))}
+        toks = [torch.full((B, 1), 5 * i + 1, dtype=torch.int32)
+                for i in range(SPLIT_DECODE_STEPS)]
+        cache = lm.init_cache(cfg, B, SPLIT_DECODE_STEPS, device="cpu")
+        want = [lm.decode_step(params, cfg, cache, {"tokens": t}, i)[0]
+                for i, t in enumerate(toks)]
+        for kv in (False, True):
+            r = dataclasses.replace(rules, fsdp=False, zero1=False,
+                                    kv_seq_model=kv)
+            with active_mesh(mesh):
+                sp = distribute(params, make_param_specs(axes, params, mesh,
+                                                         r))
+                c0 = lm.init_cache(cfg, B, SPLIT_DECODE_STEPS, device="cpu")
+                sc = distribute(c0, make_cache_specs(c0, mesh, r, B))
+                got = []
+                for i, t in enumerate(toks):
+                    b = {"tokens": t}
+                    lg, sc = lm.decode_step(
+                        sp, cfg, sc, distribute(b, make_batch_specs(b, mesh)),
+                        i)
+                    got.append(lg)
+            diff[f"decode kv_seq_model={kv}"] = max(
+                [float(np.abs(_np(a) - _np(b)).max())
+                 for a, b in zip(got, want)]
+                + [float(np.abs(_np(sc[k]) - _np(cache[k])).max())
+                   for k in cache])
+        report = [None] * 4
+        dist.all_gather_object(report, (layout, diff))
+        if rank == 0:
+            out_q.put(report)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_split_query_heads_on_a_1x4_gloo_mesh():
+    """Where the KV heads do not divide ``model``, each rank attends with
+    its own query heads and the KV heads they read: within 1e-5 of the
+    unsharded port in training and over 16 decode steps."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_split_heads_worker, args=(r, port, q))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        report = q.get(timeout=120)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    assert [p.exitcode for p in procs] == [0] * 4
+    # rank r holds query head r (4 heads of 16 over 4) and reads KV
+    # head r // 2
+    assert [layout for layout, _ in report] == \
+        [("model", (r, 1)) for r in range(4)]
+    for _, diff in report:
+        assert len(diff) == 5
+        assert max(diff.values()) <= SHARD_TOL, diff
 
 
 def collective_table() -> str:

@@ -134,6 +134,81 @@ def test_attn_forward_and_decode_vs_reference(name):
     assert not torch.equal(tck[:, -1], full[:, -1])
 
 
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "internlm2-1.8b",
+                                  "qwen2-vl-72b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_without_a_mesh_is_the_plain_composition(name, dtype):
+    """With no mesh ``attn_forward`` and ``attn_decode`` return the same
+    bits as the plain composition of their parts (project, rotate,
+    attend, ``o``): the split over the model axis leaves them as they
+    were."""
+    cfg = f32(name)
+    assert tattn._head_axis(cfg, None) is None
+    assert tattn._kv_split(cfg, None) is None
+    gen = torch.Generator().manual_seed(3)
+    p, _ = tattn.init_attn(gen, cfg, dtype, "cpu")
+    B, S, Smax = 2, 8, 8
+    x = torch.randn(B, S, cfg.d_model, generator=gen).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+    if cfg.rope == "mrope":
+        pos = torch.stack([pos, pos // 2, pos % 3])
+    o, (k, v) = tattn.attn_forward(p, x, cfg, pos, q_block=4, kv_block=4)
+    q2, k2, v2 = tattn._heads(*tattn._project(p, x, cfg), pos, cfg)
+    o2 = tattn.flash_attention(q2, k2, v2, q_block=4, kv_block=4)
+    assert torch.equal(o, o2.reshape(B, S, -1) @ p["wo"])
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    shape = (B, Smax, cfg.n_kv_heads, cfg.head_dim)
+    ck, cv = torch.zeros(shape, dtype=dtype), torch.zeros(shape, dtype=dtype)
+    ck2, cv2 = ck.clone(), cv.clone()
+    for t in range(Smax):
+        xt = x[:, t:t + 1]
+        o, _, _ = tattn.attn_decode(p, xt, ck, cv, t, cfg)
+        pt = torch.full((B, 1), t, dtype=torch.int32)
+        if cfg.rope == "mrope":
+            pt = pt.expand(3, B, 1)
+        q2, k2, v2 = tattn._heads(*tattn._project(p, xt, cfg), pt, cfg)
+        ck2[:, t], cv2[:, t] = k2[:, 0], v2[:, 0]
+        o2 = tattn._decode_core(q2, ck2, cv2, t, dtype) @ p["wo"]
+        assert torch.equal(o, o2) and torch.equal(ck, ck2)
+
+
+@pytest.mark.parametrize("H,KH,m", [
+    (48, 8, 16),     # dbrx-132b and the 72-340B configs: 3 heads a
+                     # rank, two ranks on a KV head
+    (4, 2, 4),       # the smoke configs on a 4-wide model axis
+    (8, 2, 8),       # one head a rank, 4 ranks on a KV head
+    (48, 12, 8),     # 6 heads a rank over a KV head and a half: one KV
+                     # head a query head
+    (16, 8, 2),      # the KV heads divide: whole KV heads a rank
+])
+def test_each_rank_reads_the_kv_heads_of_its_query_heads(H, KH, m):
+    """Attention split by query heads over ``m`` ranks, each with the KV
+    heads ``_my_kv`` cuts for it, put back together, equals attention
+    with every head, forward and decode."""
+    cfg = dataclasses.replace(f32("qwen1.5-0.5b"), n_heads=H, n_kv_heads=KH)
+    rng = np.random.default_rng(H + KH + m)
+    B, S, D = 2, 16, 8
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)),
+                               dtype=torch.float32) for h in (H, KH, KH))
+    want = tattn.flash_attention(q, k, v, q_block=8, kv_block=8)
+    want_d = tattn._decode_core(q[:, :1], k, v, S // 2, torch.float32)
+    Hl = H // m
+    parts, parts_d = [], []
+    for r in range(m):
+        kk, vv = tattn._my_kv(k, v, cfg, r, Hl)
+        lo = r * Hl * KH // H
+        assert torch.equal(kk[:, :, 0], k[:, :, lo])
+        mine = q[:, :, r * Hl:(r + 1) * Hl]
+        parts.append(tattn.flash_attention(mine, kk, vv, q_block=8,
+                                           kv_block=8))
+        parts_d.append(tattn._decode_core(mine[:, :1], kk, vv, S // 2,
+                                          torch.float32))
+    np.testing.assert_allclose(npf(torch.cat(parts, dim=2)), npf(want),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(npf(torch.cat(parts_d, dim=2)), npf(want_d),
+                               rtol=1e-6, atol=1e-6)
+
+
 # -------------------------------- MoE --------------------------------
 
 def moe_cfg(k, d=32, f=64, E=4):

@@ -55,7 +55,7 @@ def se_want(se_world):
 
 
 def test_engine_registry():
-    assert engines() == ["cuda"]
+    assert engines() == ["baseline", "cuda"]
     assert AlignOptions().engine == "cuda" and AlignOptions().device == "cuda"
     with pytest.raises(ValueError, match="unknown engine"):
         get_engine("pallas")

@@ -11,8 +11,8 @@ serve``:
   subprocess answers one request byte-identical to ``repro_torch.cli mem
   --device cpu --no-pg`` on the same reads, and SIGINT drains it to exit
   0 with a ``serve_stop`` event in its run log;
-* ``--engine``, a flag of the reference's CLI that the port's (with the
-  one engine, ``cuda``) does not take, exits 2 before any work.
+* ``--engine`` with a name the port's CLI does not offer (it takes
+  ``cuda`` and ``baseline``) exits 2 before any work.
 """
 
 from __future__ import annotations
