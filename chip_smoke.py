@@ -38,12 +38,22 @@ Phases (each prints one line, any failure raises and exits non-zero):
    SAL, chaining, BSW) run on the 512 reads under the profiler.  Then
    ``bsw_rescue_exact``: every BSW block of PE mate rescue on 256 simulated
    pairs (insert N(300, 30), 15% of the mates rescue-only), held exactly
-   against the plain version and timed beside its bound;
+   against the plain version and timed beside its bound.  Then
+   ``galign_exact``: finalize's banded global alignment kernel on every
+   region that finalize emits for the 512 reads (one launch, as the main
+   path makes it), for both ends of the 256 pairs and for their rescued
+   mates, and on synthetic sets (the edge cases n == 0, m == 0,
+   |n - m| > w and all N; w at 1; paths off the band; long reads at
+   qmax 256), held exactly (score and CIGAR) against the plain version
+   and on 32 tasks of each set against the host ``global_align_cigar``;
+   its device time (torch.profiler, mean of 20), call and plain times,
+   bound and registers on the 512 reads' launch;
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
    set to 0 just before and read just after; one primary SAM line per
-   read, reads/s, the stage breakdown, SMEM rounds and the
-   truth-recovery share;
+   read, reads/s, the stage breakdown, finalize's split (the galign
+   call, the decision replay, the CIGARs' application, the SAM lines'
+   formatting), SMEM rounds and the truth-recovery share;
 6. card against CPU: the first 256 reads through ``Aligner(device="cpu")``
    give SAM body lines byte-identical to the card's;
 7. paired-end main path: 1,024 simulated pairs (2,048 reads) through
@@ -51,7 +61,8 @@ Phases (each prints one line, any failure raises and exits non-zero):
    batch) with the launch counters set to 0 just before and read just
    after, the rescue's launches read apart; pairs/s, the proper-pair
    share, rescued mates, FR's insert-size estimate, truth recovery per
-   end, the stage breakdown and rescue cells useful/total;
+   end, the stage breakdown, finalize's split and rescue cells
+   useful/total;
 8. PE card against CPU: the first 128 pairs, as one batch, through
    ``Aligner.align_pairs`` on the card and on the CPU give identical SAM;
 9. sharded mem: what the live exporter cost phase 5; then the first 256
@@ -122,11 +133,12 @@ Phases (each prints one line, any failure raises and exits non-zero):
    params at most 2 x lr x steps apart with at most 1e-4 of the elements
    more than 1e-5 apart.
 17. dry run: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
-   2x2 placeholder mesh) and the qwen1.5-0.5b and dbrx-132b ``train_4k``
-   cells on 16x16, three subprocesses, fake tensors on the card: seven
-   cells' per-chip flops equal hand counts to the digit (dbrx attends
-   with each rank's 3 of its 48 heads), and the MoE smoke cell moves its
-   tokens by all-to-all;
+   2x2 placeholder mesh) and the qwen1.5-0.5b, dbrx-132b and
+   llama4-scout-17b-a16e ``train_4k`` cells on 16x16, four subprocesses,
+   fake tensors on the card: eight cells' per-chip flops equal hand
+   counts to the digit (dbrx attends with each rank's 3 of its 48
+   heads, llama4-scout with rank 0's 3 of its 40), and the MoE smoke
+   cell moves its tokens by all-to-all;
 18. a sharded step: 3 bf16 train steps of phase 15's shape on a 1x1
    cuda mesh over NCCL, bit-identical to the unsharded steps;
 19. baseline: the original BWA-MEM organisation (``AlignOptions(engine=
@@ -141,7 +153,9 @@ Phases (each prints one line, any failure raises and exits non-zero):
    of 20), values equal.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
-launched; phase 19 fails if its engine launched any.  The LM path reaches none of the three kernels: phases 13-16
+launched (galign in every one, the rescued mates' in phase 7); phase
+19 fails if its engine launched any.  The LM path reaches none of the
+four kernels: phases 13-16
 set the counters to 0 before they start and fail if any kernel was
 launched by the end of any of them.
 
@@ -196,7 +210,9 @@ from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
 from repro_torch.core.contig import contig_edges  # noqa: E402
 from repro_torch import pe  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
-                                       PipelineOptions, run_se_batched)
+                                       PipelineOptions, galign_batch_fn,
+                                       run_se_batched)
+from repro_torch.core.sam import global_align_cigar  # noqa: E402
 from repro_torch.core import sal as sal_mod  # noqa: E402
 from repro_torch.core.sal import (sal_compressed, sal_direct,  # noqa: E402
                                   seeds_from_intervals)
@@ -218,6 +234,10 @@ from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
 from repro_torch.kernels.fmocc.ops import (DIRECTIONS, LAYOUTS,  # noqa: E402
                                            ext_round)
 from repro_torch.kernels.fmocc.ref import ext_round_ref  # noqa: E402
+from repro_torch.kernels import galign as galign_pkg  # noqa: E402
+from repro_torch.kernels.galign import ops as galign_ops  # noqa: E402
+from repro_torch.kernels.galign.ops import galign_call  # noqa: E402
+from repro_torch.kernels.galign.ref import galign_ref  # noqa: E402
 from repro_torch.options import AlignOptions  # noqa: E402
 from repro_torch.serve import AlignmentServer, ServeClient  # noqa: E402
 
@@ -278,6 +298,8 @@ LM_PARAM_SHARE = 1e-4      # the share of elements allowed over it
 # whole-sequence blocks (the counts are those of 512-row blocks: PERF.md)
 DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k")
 DRYRUN_MOE_CELL = ("dbrx-132b", "train_4k")
+#: llama4-scout's 40 query heads do not divide the 16-wide model axis
+DRYRUN_UNEVEN_CELL = ("llama4-scout-17b-a16e", "train_4k")
 DRYRUN_Q_BLOCK = 4096
 DRYRUN_TIMEOUT_S = 240
 #: the production cell's peak of live local bytes a chip (in the loss:
@@ -305,6 +327,13 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # The work is the spec's whatever implements it: the warp kernel's scan
 # and ballots are not added.
 BSW_OPS_PER_CELL = 20
+# int32 ALU operations per banded DP cell of global_align_cigar, the spec
+# (core/sam.py's inner loop, counted as BSW_OPS_PER_CELL is): E 3, F 3,
+# the diagonal with its score 3, H 2.  The traceback's decisions and
+# walk are not added.
+GALIGN_OPS_PER_CELL = 11
+#: tasks of each galign set also held against the host global_align_cigar
+GALIGN_HOST_SAMPLE = 32
 SECTOR = 32                # DRAM access granularity in bytes
 
 KERNELS = {
@@ -314,6 +343,9 @@ KERNELS = {
                          "src/repro/kernels/fmocc/kernel.py:96"),
     "bsw": ("src/repro_torch/kernels/csrc/bsw.cu",
             "src/repro/kernels/bsw/kernel.py:61"),
+    # host code in both packages; no Pallas counterpart
+    "galign": ("src/repro_torch/kernels/csrc/galign.cu",
+               "src/repro/core/sam.py:18"),
 }
 
 
@@ -714,23 +746,30 @@ def bsw_bound_ms(blocks: list, cells: int) -> tuple[float, str]:
 
 
 def rescue_blocks(idx, reads1, reads2, dev):
-    """The PE path's mate rescue on (reads1, reads2) up to its BSW blocks:
-    both ends through ``run_se_batched`` on ``dev``, the insert-size
-    estimate, the rescue plan, and ``run_rescues_batched`` with a
-    ``batch_fn`` that records every packed block before it launches the
-    kernel.  Returns (the blocks, the rescue's stats, the PairStat[4])."""
+    """The PE path's mate rescue on (reads1, reads2): both ends through
+    ``run_se_batched`` on ``dev``, the insert-size estimate, the rescue
+    plan, ``run_rescues_batched`` with a ``batch_fn`` that records every
+    packed block before it launches the kernel, and ``merge_rescues``.
+    Returns (the blocks, the rescue's stats, the PairStat[4], the galign
+    tasks of both ends' finalize and of the rescued mates')."""
     opt = PipelineOptions(device=str(dev))
     n = len(reads1)
-    res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt)
+    calls = []
+    with recording_galign(calls):
+        res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt)
     peopt = pe.PEOptions()
     pes = pe.estimate_pestat(res[:n], res[n:], idx, max_ins=peopt.max_ins)
     tasks = pe.plan_rescues((res[:n], res[n:]), (reads1, reads2), pes, idx,
                             peopt)
     blocks = []
-    _, stats = pe.run_rescues_batched(tasks, idx, opt.bsw,
-                                      batch_fn=recording_batch_fn(blocks, dev),
-                                      block=opt.bsw_block)
-    return blocks, stats, pes
+    outs, stats = pe.run_rescues_batched(
+        tasks, idx, opt.bsw, batch_fn=recording_batch_fn(blocks, dev),
+        block=opt.bsw_block)
+    with recording_galign(calls):
+        pe.merge_rescues((res[:n], res[n:]), tasks, outs, idx, opt.bsw,
+                         opt.mem.min_seed_len, peopt,
+                         align=galign_batch_fn(opt))
+    return blocks, stats, pes, calls
 
 
 def check_rescue_bsw(blocks: list, dev) -> dict:
@@ -775,6 +814,136 @@ def check_rescue_bsw(blocks: list, dev) -> dict:
                                  rescue_plain_ms=plain, rescue_bound_ms=bound,
                                  rescue_bound_by=by))
     return heaviest[1]
+
+
+@contextlib.contextmanager
+def recording_galign(calls: list):
+    """Every call of the galign entry that the pipeline's
+    ``galign_batch_fn`` looks up: its tasks appended to ``calls`` before
+    it launches the kernel."""
+    real = galign_pkg.global_align_batch
+
+    def record(tasks, p, *, device):
+        calls.append(list(tasks))
+        return real(tasks, p, device=device)
+    galign_pkg.global_align_batch = record
+    try:
+        yield calls
+    finally:
+        galign_pkg.global_align_batch = real
+
+
+def synthetic_galign_tasks() -> dict:
+    """name -> (q, t, w) tasks: the edge cases (n == 0, m == 0, both,
+    |n - m| > w, all N); w at 1 on related pairs of 60-129 bases; paths
+    off the band (a target's shifted copy, offset 5-40 against a
+    half-width of 1-4); long reads (n 200-256, so qmax 256, w up to
+    120)."""
+    rng = np.random.default_rng(23)
+    r = lambda k: rng.integers(0, 5, k)          # noqa: E731
+    edge = [(r(0), r(0), 5), (r(0), r(7), 1), (r(9), r(0), 3),
+            (r(1), r(1), 1), (r(1), r(40), 2), (r(40), r(1), 2),
+            (r(60), r(10), 5), (r(10), r(60), 5),
+            (np.full(20, 4), np.full(25, 4), 1)]
+    ql = rng.integers(60, 130, 256).tolist()
+    qs, ts = related(rng, ql, [q + int(rng.integers(-8, 9)) for q in ql])
+    w1 = [(q, t, 1) for q, t in zip(qs, ts)]
+    off = []
+    for _ in range(128):
+        L, sh = int(rng.integers(30, 150)), int(rng.integers(5, 41))
+        t = rng.integers(0, 4, L)
+        off.append((np.concatenate([t[sh:], rng.integers(0, 4, sh)]), t,
+                    int(rng.integers(1, 5))))
+    ql = rng.integers(200, 257, 256).tolist()
+    qs, ts = related(rng, ql, [q + int(rng.integers(-20, 40)) for q in ql])
+    long = [(q, t, int(rng.integers(10, 121))) for q, t in zip(qs, ts)]
+    return {"edge": edge, "w1": w1, "off_band": off, "long_query": long}
+
+
+def galign_cells(tasks) -> int:
+    """Banded DP cells of ``tasks``: each row's [max(1, i - w), min(m,
+    i + w)] with the reference's w = max(w, |n - m| + 3)."""
+    total = 0
+    for q, t, w in tasks:
+        n, m = len(q), len(t)
+        if n and m:
+            w = max(w, abs(n - m) + 3)
+            i = np.arange(1, n + 1)
+            total += int(np.maximum(0, np.minimum(m, i + w)
+                                    - np.maximum(1, i - w) + 1).sum())
+    return total
+
+
+def galign_bound_ms(tasks, cells: int, runs: int) -> tuple[float, str]:
+    """Least time of one launch over ``tasks`` and what bounds it: their
+    ``cells`` banded cells x ``GALIGN_OPS_PER_CELL`` over the int32 rate,
+    or every input (the codes, n, m, w) read and every output (score,
+    run count, ``runs`` runs) written once over the HBM rate."""
+    nbytes = (sum(len(q) + len(t) for q, t, _ in tasks) + 12 * len(tasks)
+              + 8 * len(tasks) + 4 * runs)
+    ops_ms = 1e3 * cells * GALIGN_OPS_PER_CELL / INT32_OPS_PER_S
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def check_galign(sets: dict, dev) -> dict:
+    """Every task set held exactly (score and CIGAR) against the plain
+    version on the same card tensors, and ``GALIGN_HOST_SAMPLE`` of each
+    against the host ``global_align_cigar``; then the real SE set, in one
+    launch as finalize makes it, timed beside its bound."""
+    p = BSWParams()
+    err, n_tasks, n_host = 0, 0, 0
+    for name, tasks in sets.items():
+        args = [torch.from_numpy(a).to(dev) for a in galign_ops.pack(tasks)]
+        out, want = galign_call(*args, p), galign_ref(*args, p)
+        err = max(err, int((out[0] - want[0]).abs().max()))
+        got = galign_ops.unpack(*out)
+        if got != galign_ops.unpack(*want):
+            bad = next(k for k, (a, b) in enumerate(
+                zip(got, galign_ops.unpack(*want))) if a != b)
+            raise AssertionError(f"galign differs from its plain version on "
+                                 f"set {name}, task {bad}")
+        step = max(1, len(tasks) // GALIGN_HOST_SAMPLE)
+        for k in range(0, len(tasks), step):
+            if global_align_cigar(*tasks[k], p) != got[k]:
+                raise AssertionError(f"galign differs from global_align_cigar "
+                                     f"on set {name}, task {k}")
+            n_host += 1
+        n_tasks += len(tasks)
+    phase("galign_exact", sets=",".join(f"{k}:{len(v)}" for k, v in
+                                        sets.items()),
+          tasks=n_tasks, host_checked=n_host, max_abs_err=err)
+    timed = sets["real_se"]
+    args = [torch.from_numpy(a).to(dev) for a in galign_ops.pack(timed)]
+    cells = galign_cells(timed)
+    runs = int(galign_call(*args, p)[1].sum())
+    call = cuda_ms(lambda: galign_call(*args, p))
+    ms = kernel_ms(lambda: galign_call(*args, p), "galign_kernel", 1)
+    plain = cuda_ms(lambda: galign_ref(*args, p), reps=3)
+    bound, by = galign_bound_ms(timed, cells, runs)
+    phase("galign", tasks=len(timed), nmax=args[0].shape[1],
+          mmax=args[1].shape[1], cells=cells, runs=runs,
+          ptxas=ptxas_resources("galign_kernel").replace(" ", "_"),
+          kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
+          plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.6f}", bound_by=by,
+          launches_phase4=kernels.launch_counts()["galign"])
+    return {"galign": dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by)}
+
+
+def finalize_split(snap: dict, what: str) -> None:
+    """Finalize's parts from a ``--profile`` run's snapshot: the galign
+    call (packing, the launch, unpacking), the decision replay and
+    marking before it, the CIGARs' application after it (strand, NM,
+    MAPQ), and the SAM lines' formatting and writing."""
+    get = lambda k: float(snap.get(k, 0.0))     # noqa: E731
+    phase(what, finalize_s=f"{get('time_finalize_s'):.3f}",
+          galign_kernel_s=f"{get('time_kernel.galign_s'):.3f}",
+          decision_replay_s=f"{get('time_finalize.replay_s'):.3f}",
+          cigar_apply_s=f"{get('time_finalize.cigar_s'):.3f}",
+          sam_format_s=f"{get('time_sam_format_s'):.3f}",
+          galign_tasks=int(snap.get("galign_tasks", 0)))
 
 
 # ---------------------------------------------------------------------
@@ -848,15 +1017,18 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     names = [f"pair{i}" for i in range(N_PAIRS)]
     sam, prof = tmp / "pe.sam", tmp / "pe.json"
     rescue_launches = dict.fromkeys(kernels.launch_counts(), 0)
-    run_rescues = pe.run_rescues_batched
+    run_rescues, merge = pe.run_rescues_batched, pe.merge_rescues
 
-    def counted(*args, **kw):
-        before = kernels.launch_counts()
-        out = run_rescues(*args, **kw)
-        for k, v in kernels.launch_counts().items():
-            rescue_launches[k] += v - before[k]
-        return out
-    pe.run_rescues_batched = counted
+    def counted(fn):
+        def run(*args, **kw):
+            before = kernels.launch_counts()
+            out = fn(*args, **kw)
+            for k, v in kernels.launch_counts().items():
+                rescue_launches[k] += v - before[k]
+            return out
+        return run
+    pe.run_rescues_batched = counted(run_rescues)
+    pe.merge_rescues = counted(merge)
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -868,7 +1040,7 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
     finally:
-        pe.run_rescues_batched = run_rescues
+        pe.run_rescues_batched, pe.merge_rescues = run_rescues, merge
     if rc != 0:
         raise AssertionError(f"repro_torch.cli mem (paired) exited {rc}")
     payload = obs.read_profile(prof)
@@ -900,6 +1072,7 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     phase("breakdown_pe", stages=json.dumps(stages, separators=(",", ":")),
           kernels=json.dumps(bd.get("kernels", {}), separators=(",", ":")),
           unattributed_s=bd["unattributed_s"])
+    finalize_split(snap, "finalize_split_pe")
     return dict(launches=launches, rescue_launches=rescue_launches,
                 occ_kernel=picked.split("/")[0], fq1=fq1, fq2=fq2, r1=r1,
                 r2=r2)
@@ -940,11 +1113,12 @@ def sweep_launches() -> dict:
 
 
 def require_path_launches(launches: dict, n_sweeps: int, what: str) -> None:
-    """The run launched BSW, and SMEM rounds beyond its ``n_sweeps``
-    sweeps' launches of the round kernel."""
+    """The run launched BSW and galign, and SMEM rounds beyond its
+    ``n_sweeps`` sweeps' launches of the round kernel."""
     sweep = sweep_launches()
-    if launches["bsw"] <= 0:
-        raise AssertionError(f"{what}: the bsw kernel was not launched")
+    for k in ("bsw", "galign"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{what}: the {k} kernel was not launched")
     if not any(launches[k] > n_sweeps * sweep[k] for k in sweep
                if k.startswith("fmocc")):
         raise AssertionError(f"{what}: no SMEM round kernel launched beyond "
@@ -1888,25 +2062,28 @@ def moe_train_flops_per_chip(cfg, B: int, S: int, data: int,
     """Hand count of the products one chip runs in a MoE train step
     (every layer checkpointed; the capacity of the global batch): the
     head's product forward and its two backward ones; each layer's
-    forward, recomputed and its two backward ones.  A layer: q, o and
-    attention on the rank's share of the heads (dbrx's 8 KV heads do not
-    divide a 16-wide model axis: K and V are gathered and each rank
-    attends with its own 3 query heads), k and v on its share of the KV
-    columns, the router on the rank's tokens, and the expert products on
-    its E/data experts at all C slots and d_ff/model (the down
-    projection is recomputed: the combine's backward needs its
-    output)."""
+    forward, recomputed and its two backward ones.  A layer: q and o on
+    the rank's flat share of the heads' columns, attention with rank 0's
+    block of query heads (dbrx's 8 KV heads do not divide a 16-wide model
+    axis: K and V are gathered and each rank attends with its own 3 query
+    heads; llama4-scout's 40 query heads do not divide it either: Q is
+    gathered too and rank 0 attends with 3 of them, ranks 8-15 with 2),
+    k and v on its share of the KV columns, the router on the rank's
+    tokens, and the expert products on its E/data experts at all C slots
+    and d_ff/model (the down projection is recomputed: the combine's
+    backward needs its output)."""
     Bl = B // data
     T = Bl * S
     H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
     hl, kvl = H * hd // model, cfg.n_kv_heads * hd // model
+    ha = -(-H // model) * hd                   # rank 0's heads' columns
     E, k = cfg.moe_experts, cfg.moe_top_k
     C = int(B * S * k * 1.25 / E)
     El, fl, vl = E // data, cfg.d_ff // model, cfg.vocab // model
 
     def mm(m, k, n):
         return 2 * m * k * n
-    layer_fwd = (mm(T, d, hl + 2 * kvl) + 2 * 2 * T * S * hl
+    layer_fwd = (mm(T, d, hl + 2 * kvl) + 2 * 2 * T * S * ha
                  + mm(T, hl, d) + mm(T, d, E)
                  + El * (2 * mm(C, d, fl) + mm(C, fl, d)))
     return 3 * mm(T, d, vl) + cfg.n_layers * 4 * layer_fwd
@@ -1950,13 +2127,13 @@ def smoke_flops_per_chip() -> dict:
 def dryrun_phase(tmp: pathlib.Path) -> None:
     """Phase 17: ``repro_torch.launch.dryrun --smoke`` (5 smoke cells on a
     2x2 mesh of a 4-rank placeholder world) and the full-width
-    production cells DRYRUN_CELL and DRYRUN_MOE_CELL on the 16x16 mesh
-    of a 256-rank world, three processes at once, fake tensors on the
-    card; each must exit 0, write its records and launch no BWA-MEM
-    kernel (each reports the counts of its own run), and each record is
-    printed.  The dense production cell's per-chip flops must equal
-    ``dense_train_flops_per_chip`` and its peak DRYRUN_PEAK_BYTES (the
-    counts of torch 2.13 on the CPU), the MoE one's
+    production cells DRYRUN_CELL, DRYRUN_MOE_CELL and DRYRUN_UNEVEN_CELL
+    on the 16x16 mesh of a 256-rank world, four processes at once, fake
+    tensors on the card; each must exit 0, write its records and launch
+    no BWA-MEM kernel (each reports the counts of its own run), and each
+    record is printed.  The dense production cell's per-chip flops must
+    equal ``dense_train_flops_per_chip`` and its peak DRYRUN_PEAK_BYTES
+    (the counts of torch 2.13 on the CPU), the two MoE ones'
     ``moe_train_flops_per_chip``, four smoke cells' flops
     ``smoke_flops_per_chip``."""
     t_phase = time.perf_counter()
@@ -1966,7 +2143,8 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
     base = [sys.executable, "-c", DRYRUN_CHILD]
     runs = {"smoke": base + ["--smoke", "--out-dir", str(tmp / "smoke")]}
     for key, (arch, shape) in (("cell", DRYRUN_CELL),
-                               ("moe", DRYRUN_MOE_CELL)):
+                               ("moe", DRYRUN_MOE_CELL),
+                               ("uneven", DRYRUN_UNEVEN_CELL)):
         runs[key] = base + ["--arch", arch, "--shape", shape, "--q-block",
                             str(DRYRUN_Q_BLOCK), "--out-dir", str(tmp / key)]
     procs = {k: subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
@@ -1995,8 +2173,8 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
                                  f"{launches[k]}")
     recs = [json.loads(f.read_text()) for d in runs
             for f in sorted((tmp / d).glob("*.json"))]
-    if len(recs) != 7:
-        raise AssertionError(f"dryrun wrote {len(recs)} records, not 7")
+    if len(recs) != 8:
+        raise AssertionError(f"dryrun wrote {len(recs)} records, not 8")
     for r in recs:
         rf, c = r["roofline"], r["collectives"]
         if not (r["cost"]["flops"] > 0 and c["counts"]
@@ -2022,7 +2200,9 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
     want = {key: count(get_arch(key[0]), SHAPES[key[1]].global_batch,
                        SHAPES[key[1]].seq_len, 16, 16)
             for key, count in ((DRYRUN_CELL, dense_train_flops_per_chip),
-                               (DRYRUN_MOE_CELL, moe_train_flops_per_chip))}
+                               (DRYRUN_MOE_CELL, moe_train_flops_per_chip),
+                               (DRYRUN_UNEVEN_CELL,
+                                moe_train_flops_per_chip))}
     want.update(smoke_flops_per_chip())
     for (arch, sname), count in want.items():
         got = by_cell[arch, sname]["cost"]["flops"]
@@ -2043,6 +2223,8 @@ def dryrun_phase(tmp: pathlib.Path) -> None:
           cell_wall_s=f"{walls['cell']:.2f}",
           moe_cell_wall_s=f"{walls['moe']:.2f}",
           moe_cell_run_s=f"{by_cell[DRYRUN_MOE_CELL]['run_s']:.2f}",
+          uneven_cell_wall_s=f"{walls['uneven']:.2f}",
+          uneven_cell_run_s=f"{by_cell[DRYRUN_UNEVEN_CELL]['run_s']:.2f}",
           hand_counts=json.dumps({f"{a} {s}": v for (a, s), v in
                                   want.items()}, separators=(",", ":")),
           launches=json.dumps(launches, separators=(",", ":")),
@@ -2295,13 +2477,27 @@ def main() -> int:
         results.update(check_bsw(blocks, dev))
         p1, p2, _ = simulate_pairs(ref, N_RESCUE_PAIRS, READ_LEN, seed=11,
                                    **PAIR_SIM)
-        rblocks, rstats, pes_r = rescue_blocks(idx, p1, p2, dev)
+        rblocks, rstats, pes_r, gcalls = rescue_blocks(idx, p1, p2, dev)
         phase("rescue_sample", pairs=N_RESCUE_PAIRS,
               rescue_tasks=rstats["rescue_tasks"],
               rescue_bsw=rstats["rescue_bsw"], fr_failed=pes_r[1].failed,
               fr_avg=f"{pes_r[1].avg:.2f}")
         results["bsw"].update(check_rescue_bsw(rblocks, dev))
         del rblocks
+        # finalize's regions: the 512 reads' in one launch as the main
+        # path makes it, both ends' and the rescued mates' of the rescue
+        # sample, and the synthetic sets
+        se_calls = []
+        with recording_galign(se_calls):
+            run_se_batched(idx, reads[:N_SAMPLE_READS],
+                           PipelineOptions(device=str(dev)))
+        if len(se_calls) != 1 or len(gcalls) != 2:
+            raise AssertionError(f"galign calls: SE {len(se_calls)}, PE "
+                                 f"{[len(c) for c in gcalls]}")
+        results.update(check_galign(
+            {"real_se": se_calls[0], "pe_ends": gcalls[0],
+             "rescued": gcalls[1], **synthetic_galign_tasks()}, dev))
+        del se_calls, gcalls
 
         # 5. main path through the CLI
         fq = tmp / "reads.fq"
@@ -2325,7 +2521,7 @@ def main() -> int:
         if not isinstance(picked, str):
             raise AssertionError(f"mem ran {len(picked)} batches, not one")
         picked = picked.split("/")[0]
-        for k in (f"fmocc_ext_{picked}", "bsw"):
+        for k in (f"fmocc_ext_{picked}", "bsw", "galign"):
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"main path")
@@ -2345,6 +2541,7 @@ def main() -> int:
               kernels=json.dumps(bd.get("kernels", {}),
                                  separators=(",", ":")),
               unattributed_s=bd["unattributed_s"])
+        finalize_split(snap, "finalize_split")
 
         # 6. the card's SAM against the CPU path's for the first reads
         first = next(iter(open_batches(str(fq), batch_size=N_CPU_READS)))
@@ -2362,12 +2559,13 @@ def main() -> int:
         # 7. paired-end main path through the CLI
         pe_run = mem_pe(fa, tmp, ref)
         launches_pe = pe_run["launches"]
-        for k in (f"fmocc_ext_{pe_run['occ_kernel']}", "bsw"):
+        for k in (f"fmocc_ext_{pe_run['occ_kernel']}", "bsw", "galign"):
             if launches_pe[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"PE path")
-        if pe_run["rescue_launches"]["bsw"] <= 0:
-            raise AssertionError("mate rescue launched no BSW block")
+        for k in ("bsw", "galign"):
+            if pe_run["rescue_launches"][k] <= 0:
+                raise AssertionError(f"mate rescue launched no {k} kernel")
 
         # 8. the card's PE SAM against the CPU path's on the first pairs
         cpu_vs_card_pe(fa, pe_run["fq1"], pe_run["fq2"])

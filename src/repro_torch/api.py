@@ -596,7 +596,7 @@ class Aligner:
                             else:
                                 res = self.align(b, engine=engine)
                                 n_reads += len(b)
-                            with obs.span("io"):
+                            with obs.span("io"), obs.span("sam_format"):
                                 for ln in res.sam():
                                     print(ln, file=fh)
                             n_records += res.n_records

@@ -338,6 +338,20 @@ def mark_and_finalize(alns: list[Alignment], query: np.ndarray,
                       min_score: int = 30,
                       all_hits: bool = False,
                       softclip_supp: bool = False) -> list[Alignment]:
+    """Marking, then each emitted region finalized on the host
+    (``host_align``: ``global_align_cigar`` region by region), as the
+    original organisation does."""
+    out = mark_regions(alns, p, min_score=min_score, all_hits=all_hits)
+    cigars = align_regions([(a, query) for a in out], S, p, host_align)
+    return finish_regions(out, cigars, query, S, l_pac, p, min_seed_len,
+                          frep=frep, softclip_supp=softclip_supp)
+
+
+def mark_regions(alns: list[Alignment], p: BSWParams, *,
+                 min_score: int = 30,
+                 all_hits: bool = False) -> list[Alignment]:
+    """The marking step of ``mark_and_finalize``: regions sorted, the
+    secondaries marked, and the ones bwa emits picked (none finalized)."""
     if not alns:
         return []
     alns = sorted(alns, key=lambda a: (-a.score, a.qb, a.rb))
@@ -362,30 +376,53 @@ def mark_and_finalize(alns: list[Alignment], query: np.ndarray,
     # Emission (bwa mem_reg2sam): primaries above -T always; secondaries
     # only under -a (flag 0x100, MAPQ 0); non-first primaries are
     # supplementary (flag 0x800) and hard-clipped unless -Y.
-    out = []
+    return [a for a in alns if a.truesc >= min_score
+            and (a.secondary < 0 or all_hits)]
+
+
+def finish_regions(out: list[Alignment], cigars: list, query: np.ndarray,
+                   S: np.ndarray, l_pac: int, p: BSWParams,
+                   min_seed_len: int, *, frep: float = 0.0,
+                   softclip_supp: bool = False) -> list[Alignment]:
+    """The rest of ``mark_and_finalize`` for the emitted regions ``out``
+    of one read, each with its CIGAR from ``global_align_cigar``:
+    ``apply_cigar``, MAPQ and the supplementary flags, in emission
+    order."""
     n_primary = 0
-    for a in alns:
-        if a.truesc < min_score:
-            continue
-        if a.secondary >= 0 and not all_hits:
-            continue
-        finalize_alignment(a, query, S, l_pac, p)
+    for a, cig in zip(out, cigars, strict=True):
+        apply_cigar(a, query, S, l_pac, cig)
         a.mapq = approx_mapq(a, p, min_seed_len) if a.secondary < 0 else 0
         a.frac_rep = frep      # per-read, carried on every region like bwa
         if a.secondary < 0:
             a.supplementary = n_primary > 0
             a.hard_clip = a.supplementary and not softclip_supp
             n_primary += 1
-        out.append(a)
     return out
 
 
 def finalize_alignment(a: Alignment, query: np.ndarray, S: np.ndarray,
                        l_pac: int, p: BSWParams):
+    """One region finalized on the host, as the reference's function of
+    this name does; ``run_se_batched`` and ``merge_rescues`` finalize a
+    batch's regions together (``align_regions``, then
+    ``apply_cigar``)."""
+    _, cig = global_align_cigar(*finalize_task(a, query, S), p)
+    apply_cigar(a, query, S, l_pac, cig)
+
+
+def finalize_task(a: Alignment, query: np.ndarray, S: np.ndarray):
+    """``(q, t, w)``: the banded global alignment that finalizes region
+    ``a`` (its query and reference segments, codes clipped to 0..4)."""
+    return (np.clip(query[a.qb:a.qe], 0, 4), np.clip(S[a.rb:a.re], 0, 4),
+            a.w)
+
+
+def apply_cigar(a: Alignment, query: np.ndarray, S: np.ndarray,
+                l_pac: int, cig: list):
+    """Finalize region ``a`` with its CIGAR from ``global_align_cigar``:
+    strand, position, the reverse strand's flip, NM."""
     qseg = query[a.qb:a.qe]
     tseg = S[a.rb:a.re]
-    _, cig = global_align_cigar(np.clip(qseg, 0, 4), np.clip(tseg, 0, 4),
-                                a.w, p)
     a.is_rev = a.rb >= l_pac
     if a.is_rev:
         a.pos = 2 * l_pac - a.re
@@ -414,6 +451,20 @@ def finalize_alignment(a: Alignment, query: np.ndarray, S: np.ndarray,
             ti += n
     a.nm = nm
     a.secondary_flag = a.secondary >= 0
+
+
+def align_regions(regions, S: np.ndarray, p: BSWParams, align) -> list:
+    """The CIGARs of every ``(a, query)`` region, in order, from ONE call
+    of ``align`` (``host_align``, or ``galign_batch_fn``'s galign kernel)
+    over all their ``finalize_task``s."""
+    tasks = [finalize_task(a, q, S) for a, q in regions]
+    return [cig for _, cig in align(tasks, p)]
+
+
+def host_align(tasks, p: BSWParams) -> list:
+    """``global_align_cigar`` on the host, task by task: the original
+    organisation's finalize (the ``baseline`` engine's)."""
+    return [global_align_cigar(q, t, w, p) for q, t, w in tasks]
 
 
 def approx_mapq(a: Alignment, p: BSWParams, min_seed_len: int) -> int:
@@ -457,6 +508,13 @@ def bsw_batch_fn(opt: PipelineOptions):
     """Per-block BSW (``kernels.bsw.bsw_extend_kernel``) on ``opt.device``."""
     from ..kernels.bsw import bsw_extend_kernel   # kernels import core
     return functools.partial(bsw_extend_kernel, device=opt.device)
+
+
+def galign_batch_fn(opt: PipelineOptions):
+    """Finalize's banded global alignments, all of a batch in one call
+    (``kernels.galign.global_align_batch``) on ``opt.device``."""
+    from ..kernels.galign import global_align_batch   # kernels import core
+    return functools.partial(global_align_batch, device=opt.device)
 
 
 def occ_fn_for(idx: FMIndex, opt: PipelineOptions):
@@ -558,21 +616,30 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
                                block=opt.bsw_block, sort=opt.bsw_sort)
     with obs.span("bsw", jobs=len(jobs)):
         execu.plan_and_run(jobs)
-    # Stage 5: decision replay + SAM-FORM
+    # Stage 5: decision replay + SAM-FORM: every read's emitted regions
+    # marked first, then all of their CIGARs in one galign launch
     with obs.span("finalize"):
-        results = []
-        for r in range(R):
-            alns: list[Alignment] = []
-            for ci, c in enumerate(chains_per_read[r]):
-                alns.extend(chain2aln(c, reads[r], idx, opt.bsw,
-                                      execu.executor((r, ci))))
-            frep = smem_mod.frac_rep(mems[r], L, opt.mem.max_occ)
-            results.append(mark_and_finalize(alns, reads[r], S, l_pac,
-                                             opt.bsw, opt.mem.min_seed_len,
-                                             frep=frep,
-                                             min_score=opt.min_score,
-                                             all_hits=opt.all_hits,
-                                             softclip_supp=opt.softclip_supp))
+        with obs.span("finalize.replay"):
+            emitted = []
+            for r in range(R):
+                alns: list[Alignment] = []
+                for ci, c in enumerate(chains_per_read[r]):
+                    alns.extend(chain2aln(c, reads[r], idx, opt.bsw,
+                                          execu.executor((r, ci))))
+                emitted.append(mark_regions(alns, opt.bsw,
+                                            min_score=opt.min_score,
+                                            all_hits=opt.all_hits))
+        cigars = iter(align_regions(
+            [(a, reads[r]) for r in range(R) for a in emitted[r]], S,
+            opt.bsw, galign_batch_fn(opt)))
+        with obs.span("finalize.cigar"):
+            results = []
+            for r in range(R):
+                frep = smem_mod.frac_rep(mems[r], L, opt.mem.max_occ)
+                results.append(finish_regions(
+                    emitted[r], [next(cigars) for _ in emitted[r]],
+                    reads[r], S, l_pac, opt.bsw, opt.mem.min_seed_len,
+                    frep=frep, softclip_supp=opt.softclip_supp))
     stats = obs.Snapshot(sa_lookups=n_lookups, bsw_tasks=execu.stats["tasks"],
                          cells_useful=execu.stats["cells_useful"],
                          cells_total=execu.stats["cells_total"])

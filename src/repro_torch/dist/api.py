@@ -235,8 +235,9 @@ def local_apply(fn, args, in_axes, out_axes):
     their local ones times the ways each dim is split).
 
     Gradients: an argument whole over a mesh dim that another argument
-    is split over (a weight beside a batch shard) gets, on each rank, the
-    part of its gradient that rank's shard gives: its gradient is
+    or an output is split over (a weight beside a batch shard; heads
+    gathered to compute a rank's block of an output) gets, on each rank,
+    the part of its gradient that rank's shard gives: its gradient is
     ``Partial`` over that dim, summed where it is laid out again.
     """
     mesh = current_mesh()
@@ -245,7 +246,10 @@ def local_apply(fn, args, in_axes, out_axes):
     name = getattr(fn, "__name__", fn)
     ins = tuple(None if ax is None else _placements(mesh, ax)
                 for ax in in_axes)
-    split = [any(isinstance(pl[m], Shard) for pl in ins if pl is not None)
+    outs = [_placements(mesh, ax) for ax in
+            (out_axes if isinstance(out_axes, list) else [out_axes])]
+    split = [any(isinstance(pl[m], Shard)
+                 for pl in (*ins, *outs) if pl is not None)
              for m in range(mesh.ndim)]
     local = []
     for a, pl in zip(args, ins):
@@ -292,6 +296,42 @@ def exchange(t):
     groups = [mesh.get_group(a) for a in batch_mesh_axes(mesh)]
     groups = [g for g in groups if g.size() > 1]
     return _Exchange.apply(t, tuple(groups)) if groups else t
+
+
+def reduce_scatter(t, axis: str, dim: int):
+    """Reduce-scatter of a LOCAL tensor (inside ``local_apply``'s ``fn``)
+    over mesh axis ``axis``: the sum of every rank's ``t``, of which this
+    rank keeps its block of ``dim`` (split evenly, in rank order).  Its
+    gradient is the all-gather of the gradient.  For a rank's part of a
+    whole tensor, zero elsewhere, this lays the parts out as an even
+    shard.  Without a mesh ``t`` itself."""
+    mesh = current_mesh()
+    if mesh is None:
+        return t
+    return _ReduceScatter.apply(t, mesh.get_group(axis), dim)
+
+
+def _along_dim0(op, t, dim: int, group):
+    """``op`` (a functional collective along dim 0: the group's blocks
+    stacked there) applied along ``dim`` of ``t``."""
+    n = group.size()
+    x = t.movedim(dim, 0).contiguous()
+    y = funcol.wait_tensor(op(x, n, group.group_name))
+    return y.movedim(0, dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _along_dim0(
+            lambda x, n, g: torch.ops._c10d_functional.reduce_scatter_tensor(
+                x, "sum", n, g), t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _along_dim0(torch.ops._c10d_functional.all_gather_into_tensor,
+                           grad, ctx.dim, ctx.group), None, None
 
 
 def _all_to_all(t, groups):

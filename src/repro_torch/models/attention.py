@@ -15,7 +15,7 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 
 from ..dist.api import (along, batch_mesh_axes, constrain, current_mesh,
-                        local_apply, replicated)
+                        local_apply, reduce_scatter, replicated)
 from ..dist.sharding import rules_for
 from .layers import apply_mrope, apply_rope, dense_init
 
@@ -81,25 +81,35 @@ def _heads(q, k, v, positions, cfg):
 
 
 def _head_axis(cfg, mesh) -> str | None:
-    """``"model"`` when the query heads split evenly over the mesh's
-    model axis and the specs' rules head-shard the projections (their
-    flat widths divide it: ``rules_for``'s ``heads_ok``): each rank then
-    attends with its own query heads, the tensor-parallel layout.  Else
-    None (every rank attends with all), as where the batch takes the
-    model axis too (``dp_all``)."""
+    """``"model"`` where the specs' rules head-shard the projections
+    (their flat widths divide the mesh's model axis: ``rules_for``'s
+    ``heads_ok``) and there are at least as many query heads as ranks on
+    it: each rank then attends with its own block of query heads
+    (``_head_block``), the tensor-parallel layout.  Else None (every rank
+    attends with all), as where the batch takes the model axis too
+    (``dp_all``)."""
     if mesh is None or "model" in batch_mesh_axes(mesh):
         return None
     m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
-    if m > 1 and cfg.n_heads % m == 0 and rules_for(cfg, mesh).heads_ok:
+    if 1 < m <= cfg.n_heads and rules_for(cfg, mesh).heads_ok:
         return "model"
     return None
+
+
+def _head_block(H: int, m: int, r: int) -> tuple[int, int]:
+    """``(lo, n)``: the query heads [lo, lo + n) of rank ``r`` of ``m``.
+    An uneven split where ``m`` does not divide ``H``: the first ``H %
+    m`` ranks hold one head more (40 heads on 16: 3 on ranks 0-7, 2 on
+    ranks 8-15), no head is padded."""
+    base, extra = divmod(H, m)
+    return r * base + min(r, extra), base + (r < extra)
 
 
 def _kv_split(cfg, mesh) -> tuple[int, int] | None:
     """Where ``_head_axis`` splits the query heads but the KV heads do
     not divide the model axis (a rank's share of K and V may be part of
-    a head): ``(r, Hl)``, this rank's place on ``model`` and its count
-    of query heads.  K and V are then gathered over ``model`` and each
+    a head): ``(lo, n)``, this rank's block of query heads
+    (``_head_block``).  K and V are then gathered over ``model`` and each
     rank slices the KV heads its query heads read (``_my_kv``).  Else
     None: each rank's share of K and V is whole KV heads, its own."""
     if _head_axis(cfg, mesh) is None:
@@ -107,33 +117,55 @@ def _kv_split(cfg, mesh) -> tuple[int, int] | None:
     m = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
     if cfg.n_kv_heads % m == 0:
         return None
-    return mesh.get_local_rank("model"), cfg.n_heads // m
+    return _head_block(cfg.n_heads, m, mesh.get_local_rank("model"))
 
 
 def _layout(cfg):
-    """``(h, split, kvh)`` under the current mesh: the query heads' axis
-    (``_head_axis``), ``_kv_split``'s answer, and the K and V heads'
-    axis (None where they are gathered)."""
+    """``(h, split, kvh, qh)`` under the current mesh: the axis of the
+    query heads and of the attention output (``_head_axis``),
+    ``_kv_split``'s answer, the K and V heads' axis (None where they are
+    gathered) and Q's axis on the way in: None where the query heads do
+    not divide ``model`` either, so that a rank's flat shard of Q is not
+    whole heads (2.5 of llama4-scout's 40 on 16); Q is then gathered too
+    and each rank slices its block."""
     mesh = current_mesh()
     h = _head_axis(cfg, mesh)
+    if h is None:
+        return None, None, None, None
     split = _kv_split(cfg, mesh)
-    return h, split, None if split is not None else h
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    return (h, split, None if split is not None else h,
+            None if cfg.n_heads % m else h)
 
 
-def _my_kv(k, v, cfg, r: int, Hl: int):
+def _my_kv(k, v, cfg, lo: int, Hl: int):
     """K and V (B, S, KH, hd), whole, cut to what query heads
-    [r·Hl, (r+1)·Hl) read: KV heads [r·Hl // G, ((r+1)·Hl - 1) // G]
+    [lo, lo + Hl) read: KV heads [lo // G, (lo + Hl - 1) // G]
     (G = H / KH), so ranks with fewer than G heads share one.  Where
     those KV heads serve unequal numbers of the rank's query heads, one
     KV head a query head, so that the core's grouping holds."""
     G = cfg.n_heads // cfg.n_kv_heads
-    lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
-    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-    idx = [(r * Hl + j) // G - lo for j in range(Hl)]
-    n = hi - lo
+    a, b = lo // G, (lo + Hl - 1) // G + 1
+    k, v = k[:, :, a:b], v[:, :, a:b]
+    idx = [(lo + j) // G - a for j in range(Hl)]
+    n = b - a
     if Hl % n or idx != [j // (Hl // n) for j in range(Hl)]:
         k, v = k[:, :, idx], v[:, :, idx]
     return k, v
+
+
+def _to_flat_shard(o, cfg, split):
+    """A rank's attention output over its block of query heads, (B, S,
+    n·hd), laid out as the even flat shard of the whole output that
+    ``wo``'s row shard takes (5,120 / 16 = 320 columns a rank for
+    llama4-scout): placed among zeros at its heads' columns, then
+    reduce-scattered over ``model``.  The gradient comes back by
+    all-gather, and each rank takes its heads' columns."""
+    lo, n = split
+    hd = cfg.head_dim
+    o = torch.nn.functional.pad(
+        o, (lo * hd, (cfg.n_heads - lo - n) * hd))
+    return reduce_scatter(o, "model", o.ndim - 1)
 
 
 def _pos_axes(positions):
@@ -188,27 +220,36 @@ def attn_forward(p, x, cfg, positions, *, q_block=512, kv_block=512):
     """Training / prefill attention (no cache). Returns (out, (k, v)).
 
     Under a mesh the rotations and the attention core run on each rank's
-    batch shard and, where ``_head_axis`` allows, its query heads.  Where
-    the KV heads do not divide the model axis (``_kv_split``), K and V
-    are gathered over it (the gather's backward reduce-scatters their
-    gradients) and each rank slices the KV heads its query heads read;
-    the returned K and V are then whole over ``model``.  Either way each
-    rank's output is its own heads' columns, and ``o`` runs as a
-    row-split product."""
-    h, split, kvh = _layout(cfg)
+    batch shard and, where ``_head_axis`` allows, its block of query
+    heads.  Where the KV heads do not divide the model axis
+    (``_kv_split``), K and V are gathered over it (the gather's backward
+    reduce-scatters their gradients) and each rank slices the KV heads
+    its query heads read; the returned K and V are then whole over
+    ``model``.  Where the query heads do not divide it either, Q is
+    gathered as K and V are, each rank slices its block, and its output
+    is laid out as the flat shard ``o`` takes (``_to_flat_shard``).
+    Either way each rank's output is its share of the heads' columns,
+    and ``o`` runs as a row-split product."""
+    h, split, kvh, qh = _layout(cfg)
+    uneven = qh != h
 
     def core(q, k, v, positions):
+        if uneven:                      # the block's columns of Q, whole
+            lo, n = split
+            q = q[..., lo * cfg.head_dim:(lo + n) * cfg.head_dim]
         q, k, v = _heads(q, k, v, positions, cfg)
         kk, vv = (k, v) if split is None else _my_kv(k, v, cfg, *split)
         o = flash_attention(q, kk, vv, causal=True,
                             q_block=q_block, kv_block=kv_block)
         B, S, H, D = o.shape
-        return o.reshape(B, S, H * D), k, v
+        o = o.reshape(B, S, H * D)
+        return (_to_flat_shard(o, cfg, split) if uneven else o), k, v
 
-    flat, kv_flat = ("batch", None, h), ("batch", None, kvh)
+    kv_flat = ("batch", None, kvh)
     o, k, v = local_apply(core, (*_project(p, x, cfg), positions),
-                          [flat, kv_flat, kv_flat, _pos_axes(positions)],
-                          [flat, ("batch", None, kvh, None),
+                          [("batch", None, qh), kv_flat, kv_flat,
+                           _pos_axes(positions)],
+                          [("batch", None, h), ("batch", None, kvh, None),
                            ("batch", None, kvh, None)])
     return o @ p["wo"], (k, v)
 
@@ -255,23 +296,26 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
     Softmax runs over the full static cache with the unclamped
     ``arange(Smax) <= pos`` mask.  Under a mesh each rank attends over
     its batch shard of the cache with, where ``_head_axis`` allows, its
-    own query heads and the KV heads they read (sliced from the cache,
-    which is whole over ``model``); the new K and V are laid out as the
-    cache is before they are written (gathered over ``model`` before
-    they are rotated where ``_kv_split`` gives a rank part of a head).
+    own block of query heads and the KV heads they read (sliced from the
+    cache, which is whole over ``model``); the new K and V are laid out
+    as the cache is before they are written (gathered over ``model``
+    before they are rotated where ``_kv_split`` gives a rank part of a
+    head).  Where the query heads do not divide ``model``, Q is gathered
+    too and the output laid out as ``attn_forward``'s is.
     """
     B = x.shape[0]
     shape = (B, 1) if cfg.rope != "mrope" else (3, B, 1)
     positions = replicated(torch.full(shape, pos, dtype=torch.int32,
                                       device=x.device), x)
-    h, split, kvh = _layout(cfg)
-    flat, kv_flat = ("batch", None, h), ("batch", None, kvh)
-    heads, kv_heads = ("batch", None, h, None), ("batch", None, kvh, None)
+    h, split, kvh, qh = _layout(cfg)
+    uneven = qh != h
+    kv_flat, kv_heads = ("batch", None, kvh), ("batch", None, kvh, None)
+    q_heads = ("batch", None, qh, None)
     q, k_new, v_new = local_apply(
         lambda q, k, v, pos_: _heads(q, k, v, pos_, cfg),
         (*_project(p, x, cfg), positions),
-        [flat, kv_flat, kv_flat, _pos_axes(positions)],
-        [heads, kv_heads, kv_heads])
+        [("batch", None, qh), kv_flat, kv_flat, _pos_axes(positions)],
+        [q_heads, kv_heads, kv_heads])
     if kvh is not None:
         k_new = constrain(k_new, "batch", None, None, None)
         v_new = constrain(v_new, "batch", None, None, None)
@@ -282,9 +326,12 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg):
 
     def core(q, ck, cv):
         if split is not None:
+            if uneven:
+                q = q[:, :, split[0]:split[0] + split[1]]
             ck, cv = _my_kv(ck, cv, cfg, *split)
-        return _decode_core(q, ck, cv, pos, x.dtype)
+        o = _decode_core(q, ck, cv, pos, x.dtype)
+        return _to_flat_shard(o, cfg, split) if uneven else o
     o = local_apply(core, (q, cache_k, cache_v),
-                    [heads, kv_heads, kv_heads], flat)
+                    [q_heads, kv_heads, kv_heads], ("batch", None, h))
     o = o @ p["wo"]
     return o, cache_k, cache_v

@@ -7,7 +7,8 @@ Stages:
 2. mate rescue — insert-window banded SW for unmapped/inconsistent mates,
    scalar per-pair baseline vs. length-sorted inter-task batches through
    the pipeline's BSW executor, so through the bsw kernel on the
-   pipeline's device (rescue.py);
+   pipeline's device, the accepted mates finalized in one galign call
+   (rescue.py);
 3. pair scoring/selection and pair-aware SAM emission with proper-pair
    FLAG/RNEXT/PNEXT/TLEN fields (pairing.py).
 
@@ -16,7 +17,7 @@ The entry points are ``run_pe_batched`` and ``run_pe_baseline`` in
 """
 
 from .. import obs
-from ..core.pipeline import bsw_batch_fn
+from ..core.pipeline import bsw_batch_fn, galign_batch_fn, host_align
 from .pestat import (PairStat, estimate_pestat, infer_dir,  # noqa: F401
                      pestat_from_jsonable, pestat_to_jsonable)
 from .rescue import (PEOptions, RescueTask, best_diag_seed,  # noqa: F401
@@ -56,8 +57,9 @@ def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
                                                sort=opt.bsw_sort)
         else:
             outs, rstats = run_rescues_scalar(tasks, idx, p)
-        n_rescued = merge_rescues((res1, res2), tasks, outs, idx, p,
-                                  opt.mem.min_seed_len, peopt)
+        n_rescued = merge_rescues(
+            (res1, res2), tasks, outs, idx, p, opt.mem.min_seed_len, peopt,
+            align=galign_batch_fn(opt) if batched else host_align)
     lines: list[str] = []
     n_proper = 0
     with obs.span("pe_pair"):

@@ -34,7 +34,8 @@ from ..core.bsw import BSWParams
 from ..core.chain import Chain
 from ..core.contig import block_bounds, same_contig
 from ..core.pipeline import (BatchedBSWExecutor, _bsw_immediate,
-                             approx_mapq, chain2aln, finalize_alignment)
+                             align_regions, apply_cigar, approx_mapq,
+                             chain2aln, host_align)
 from .pestat import PairStat, infer_dir
 
 
@@ -214,16 +215,23 @@ def run_rescues_batched(tasks: list[RescueTask], idx, p: BSWParams, *,
 
 def merge_rescues(results: tuple, tasks: list[RescueTask], outs: list,
                   idx, p: BSWParams,
-                  min_seed_len: int, peopt: PEOptions) -> int:
+                  min_seed_len: int, peopt: PEOptions, *,
+                  align=host_align) -> int:
     """Fold rescue alignments into the per-end lists (task order is
     deterministic, so so is the merge).
 
     Keeps bwa's acceptance gates: score at least min_seed_len matches and
     the emission threshold; duplicate regions (two anchors rescuing the
     same placement) are dropped.  Returns the number of accepted rescues.
+
+    The accepted mates are collected first and all of their CIGARs come
+    from one call of ``align`` (``core.pipeline.host_align``, or
+    ``galign_batch_fn``'s kernel): the dedup reads only ``rb`` and
+    ``re``, which finalize does not change, so the mates accepted are
+    those that finalizing each on acceptance accepts.
     """
     S, l_pac = idx.seq, idx.n_ref
-    n_ok = 0
+    accepted = []
     for t, alns in zip(tasks, outs):
         for a in alns:
             if a.score < min_seed_len * p.a or a.truesc < peopt.min_score:
@@ -234,9 +242,10 @@ def merge_rescues(results: tuple, tasks: list[RescueTask], outs: list,
             # comparable between pre- and post-finalize records
             if any(x.rb == a.rb and x.re == a.re for x in regs):
                 continue
-            finalize_alignment(a, t.query, S, l_pac, p)
-            a.mapq = approx_mapq(a, p, min_seed_len)
             a.rescued = True
             regs.append(a)
-            n_ok += 1
-    return n_ok
+            accepted.append((a, t.query))
+    for (a, q), cig in zip(accepted, align_regions(accepted, S, p, align)):
+        apply_cigar(a, q, S, l_pac, cig)
+        a.mapq = approx_mapq(a, p, min_seed_len)
+    return len(accepted)

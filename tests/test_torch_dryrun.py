@@ -8,8 +8,11 @@
 * The per-chip flops the dry run counts equal hand counts of their
   products: a one-layer smoke qwen1.5-0.5b prefill and its decode, the
   smoke dbrx-132b's train step (with its all-to-alls), the smoke
-  mamba2-130m's prefill and decode, and the full-width production cell;
-  a dim the mesh does not divide raises.
+  mamba2-130m's prefill and decode, smoke configs whose KV heads, or
+  query heads too, do not divide a 4-wide model axis, and the
+  full-width production cells (qwen1.5-0.5b, dbrx-132b and
+  llama4-scout-17b-a16e train_4k); a dim the mesh does not divide
+  raises.
 * ``run_smoke`` runs its 5 cells; ``python -m repro_torch.launch.dryrun
   --arch qwen1.5-0.5b --shape train_4k --device cpu`` writes one record.
 * Sharded numerics, in one test: 4 gloo processes on a real 2x2 CPU
@@ -209,29 +212,32 @@ def test_moe_train_flops_per_chip_equal_a_hand_count():
     assert run.coll.counts["all-to-all"] == 2 * 2 * 2
 
 
-def _split_heads_flops(name: str, shape: str) -> int:
+def _split_heads_flops(name: str, shape: str, H: int = 4) -> int:
     """A hand count for rank 0 of a 1x4 mesh (data 1, model 4) running
-    a smoke config of 4 heads and 2 KV heads of 16 (d 64, 2 layers,
+    a smoke config of ``H`` heads and 2 KV heads of 16 (d 64, 2 layers,
     vocab 256: 64 a rank; d_ff 128: 32 a rank): the KV heads do not
-    divide ``model``, so the rank attends with its ONE query head (and
-    the one KV head it reads), projects q and o on that head's 16
-    columns, k and v on its 8 of the 32 KV columns.  train_smoke (B 8,
-    S 128, no remat): every product forward and its two backward ones;
-    dbrx-132b's expert products run on all 4 experts (data 1) at every
-    one of their C = 640 slots.  decode_smoke (B 8, a cache of 128)."""
-    d, hd, Hl, kvl, fl, Vl = 64, 16, 1, 8, 32, 64
+    divide ``model``, so the rank attends with its own block of query
+    heads (ONE of 4; the first TWO of 6, which split 2, 2, 1, 1) and the
+    KV head they read, projects q and o on its H·16/4 flat columns (a
+    head and a half of 6), k and v on its 8 of the 32 KV columns.
+    train_smoke (B 8, S 128, no remat): every product forward and its
+    two backward ones; dbrx-132b's expert products run on all 4 experts
+    (data 1) at every one of their C = 640 slots.  decode_smoke (B 8, a
+    cache of 128)."""
+    d, hd, kvl, fl, Vl = 64, 16, 8, 32, 64
+    Hl, ql = -(-H // 4), H * hd // 4            # heads attended; q, o cols
     mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
     if shape == "decode_smoke":
         Bl, Smax = 8, 128
-        layer = (mm(Bl, d, Hl * hd + 2 * kvl)
+        layer = (mm(Bl, d, ql + 2 * kvl)
                  + 2 * 2 * Bl * Hl * Smax * hd  # scores and values
-                 + mm(Bl, Hl * hd, d) + 3 * mm(Bl, d, fl))
+                 + mm(Bl, ql, d) + 3 * mm(Bl, d, fl))
         return 2 * layer + mm(Bl, d, Vl)
     Bl, S = 8, 128
     T = Bl * S
-    layer = (mm(T, d, Hl * hd + 2 * kvl)        # q, k, v
+    layer = (mm(T, d, ql + 2 * kvl)             # q, k, v
              + 2 * 2 * Bl * S * S * Hl * hd     # scores and values
-             + mm(T, Hl * hd, d))               # o
+             + mm(T, ql, d))                    # o
     if name == "dbrx-132b":
         E, C = 4, 640
         layer += mm(T, d, E) + E * (2 * mm(C, d, fl) + mm(C, fl, d))
@@ -264,6 +270,34 @@ def test_split_query_heads_flops_per_chip_equal_a_hand_count(
     assert run.flops == want
     if shape == "train_smoke":
         assert run.coll.counts["reduce-scatter"] == 2 * 2
+
+
+@pytest.mark.parametrize("name,shape,want,before", [
+    ("dbrx-132b", "train_smoke", 368_050_176, 588_251_136),
+    ("internlm2-1.8b", "train_smoke", 251_658_240, 471_859_200),
+    ("internlm2-1.8b", "decode_smoke", 655_360, 1_179_648),
+])
+def test_uneven_query_heads_flops_per_chip_equal_a_hand_count(
+        name, shape, want, before):
+    """Where the query heads do not divide ``model`` either (6 on 4),
+    rank 0 attends with its block of 2 (``before``: the count when every
+    rank attended with all 6 and ran o's weight gradient on the whole
+    output).  Q is gathered over ``model`` as K and V are, and each
+    rank's output is reduce-scattered to the flat shard ``o`` takes, once
+    a layer; in training the gradients of Q, K and V are reduce-scattered
+    back too."""
+    from torch.distributed.device_mesh import init_device_mesh
+    assert _split_heads_flops(name, shape, H=6) == want < before
+    cfg = dataclasses.replace(dryrun.pad_vocab(smoke_config(name)),
+                              n_heads=6, n_kv_heads=2)
+    with placeholder_world(4, "cpu"):
+        mesh = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        run = dryrun._run_cell(cfg, dryrun.SMOKE_SHAPES[shape], mesh,
+                               q_block=64, kv_block=64)
+    assert run.flops == want
+    per_layer = 4 if shape == "train_smoke" else 1
+    assert run.coll.counts["reduce-scatter"] == 2 * per_layer
 
 
 def test_ssm_prefill_flops_per_chip_equal_a_hand_count():
@@ -410,6 +444,43 @@ def test_moe_production_cell_count():
     # K's and V's gradients are reduce-scattered back to the rank's KV
     # columns, in each of the 40 layers
     assert rec["collectives"]["counts"]["reduce-scatter"] >= 2 * 40
+    assert not dist.is_initialized()
+
+
+def uneven_heads_train_flops_hand_count():
+    """The products one chip of 256 runs in a llama4-scout-17b-a16e
+    train_4k step on 16x16 (d 5120, 40 heads and 8 KV heads of 128, 16
+    experts of d_ff 8,192, top-1, vocab 202,048, 48 layers; 16 sequences
+    of 4,096 tokens a chip; one 4,096-row attention block; every layer
+    checkpointed): the head forward and its two backward products;
+    every layer forward, recomputed and its two backward products.  A
+    layer: q and o on the rank's 320 flat columns (2.5 heads), k and v
+    on its 64 of the 1,024 KV columns, attention with its 3 query heads
+    (40 on 16 split 3 on ranks 0-7 and 2 on 8-15: Q, K and V gathered
+    over ``model``, the output reduce-scattered back to the 320
+    columns), the router on its tokens, the expert products on its 1 of
+    16 experts at every one of the C = 81,920 slots and 512 of d_ff.
+    Attending with all 40 heads and o's weight gradient on the whole
+    output counted 1,583,981,254,410,240."""
+    T, S, d, hl, Hl, hd, kvl, L = 16 * 4096, 4096, 5120, 320, 3, 128, 64, 48
+    E, C, fl, vl = 16, 256 * 4096 * 1 * 5 // (4 * 16), 512, 12628
+    mm = lambda m, k, n: 2 * m * k * n          # noqa: E731
+    fwd = (mm(T, d, hl + 2 * kvl) + mm(T, hl, d)  # q, k, v; o
+           + 2 * 2 * T * S * Hl * hd            # scores and values
+           + mm(T, d, E)                        # router
+           + 2 * mm(C, d, fl) + mm(C, fl, d))   # the rank's expert
+    want = 3 * mm(T, d, vl) + L * 4 * fwd
+    assert want == 452_996_106_289_152
+    return want
+
+
+def test_uneven_heads_production_cell_count():
+    rec = dryrun.lower_cell("llama4-scout-17b-a16e", "train_4k", False,
+                            device="cpu", q_block=4096, kv_block=4096)
+    assert rec["cost"]["flops"] == uneven_heads_train_flops_hand_count()
+    # each layer's output is reduce-scattered in its forward and its
+    # recomputation, and K's and V's gradients are reduce-scattered back
+    assert rec["collectives"]["counts"]["reduce-scatter"] >= 4 * 48
     assert not dist.is_initialized()
 
 
@@ -647,10 +718,11 @@ def test_sharded_numerics_on_a_2x2_gloo_mesh():
 SPLIT_ARCH, SPLIT_DECODE_STEPS = "internlm2-1.8b", 16
 
 
-def _split_heads_worker(rank, port, out_q):
+def _split_heads_worker(rank, port, out_q, n_heads=4):
     """One of 4 ranks of a 1x4 gloo mesh (``model`` 4): the smoke
     internlm2-1.8b's 4 query heads split one a rank while its 2 KV heads
-    do not divide the axis (each rank holds half of one in K and V).
+    do not divide the axis (each rank holds half of one in K and V); or,
+    with ``n_heads`` 6, query heads that do not divide it either.
     Forward, loss and gradients, and 16 decode steps with the cache split
     by batch and then by sequence too, sharded against unsharded; rank 0
     reports the largest differences and the ranks' head layout."""
@@ -668,7 +740,8 @@ def _split_heads_worker(rank, port, out_q):
     try:
         mesh = init_device_mesh("cpu", (1, 4),
                                 mesh_dim_names=("data", "model"))
-        cfg = _f32(smoke_config(SPLIT_ARCH))
+        cfg = dataclasses.replace(_f32(smoke_config(SPLIT_ARCH)),
+                                  n_heads=n_heads)
         params, axes = lm.init_params(cfg, torch.Generator().manual_seed(0),
                                       device="cpu")
         batch = synthetic_batch(cfg, B, S, 0, device="cpu")
@@ -722,14 +795,12 @@ def _split_heads_worker(rank, port, out_q):
         dist.destroy_process_group()
 
 
-def test_split_query_heads_on_a_1x4_gloo_mesh():
-    """Where the KV heads do not divide ``model``, each rank attends with
-    its own query heads and the KV heads they read: within 1e-5 of the
-    unsharded port in training and over 16 decode steps."""
+def _run_split_heads(n_heads: int) -> list:
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_split_heads_worker, args=(r, port, q))
+    procs = [ctx.Process(target=_split_heads_worker,
+                         args=(r, port, q, n_heads))
              for r in range(4)]
     for p in procs:
         p.start()
@@ -741,10 +812,32 @@ def test_split_query_heads_on_a_1x4_gloo_mesh():
             if p.is_alive():
                 p.kill()
     assert [p.exitcode for p in procs] == [0] * 4
+    return report
+
+
+def test_split_query_heads_on_a_1x4_gloo_mesh():
+    """Where the KV heads do not divide ``model``, each rank attends with
+    its own query heads and the KV heads they read: within 1e-5 of the
+    unsharded port in training and over 16 decode steps."""
+    report = _run_split_heads(4)
     # rank r holds query head r (4 heads of 16 over 4) and reads KV
     # head r // 2
     assert [layout for layout, _ in report] == \
         [("model", (r, 1)) for r in range(4)]
+    for _, diff in report:
+        assert len(diff) == 5
+        assert max(diff.values()) <= SHARD_TOL, diff
+
+
+def test_uneven_query_heads_on_a_1x4_gloo_mesh():
+    """Where the query heads do not divide ``model`` either (6 on 4),
+    ranks 0-1 attend with 2 heads and ranks 2-3 with 1, from Q gathered
+    over ``model``; each output reaches ``o``'s row shard by
+    reduce-scatter: within 1e-5 of the unsharded port in training and
+    over 16 decode steps."""
+    report = _run_split_heads(6)
+    assert [layout for layout, _ in report] == \
+        [("model", b) for b in ((0, 2), (2, 2), (4, 1), (5, 1))]
     for _, diff in report:
         assert len(diff) == 5
         assert max(diff.values()) <= SHARD_TOL, diff

@@ -180,10 +180,15 @@ def test_attention_without_a_mesh_is_the_plain_composition(name, dtype):
     (48, 12, 8),     # 6 heads a rank over a KV head and a half: one KV
                      # head a query head
     (16, 8, 2),      # the KV heads divide: whole KV heads a rank
+    (40, 8, 16),     # llama4-scout: 3 heads on ranks 0-7, 2 on 8-15,
+                     # a block over one KV head or across two
+    (6, 2, 4),       # 2, 2, 1, 1: the uneven smoke split
+    (5, 1, 3),       # 2, 2, 1 over one KV head
 ])
 def test_each_rank_reads_the_kv_heads_of_its_query_heads(H, KH, m):
-    """Attention split by query heads over ``m`` ranks, each with the KV
-    heads ``_my_kv`` cuts for it, put back together, equals attention
+    """Attention split by query heads over ``m`` ranks (``_head_block``:
+    even, or one head more on the first ``H % m`` ranks), each with the
+    KV heads ``_my_kv`` cuts for it, put back together, equals attention
     with every head, forward and decode."""
     cfg = dataclasses.replace(f32("qwen1.5-0.5b"), n_heads=H, n_kv_heads=KH)
     rng = np.random.default_rng(H + KH + m)
@@ -192,13 +197,15 @@ def test_each_rank_reads_the_kv_heads_of_its_query_heads(H, KH, m):
                                dtype=torch.float32) for h in (H, KH, KH))
     want = tattn.flash_attention(q, k, v, q_block=8, kv_block=8)
     want_d = tattn._decode_core(q[:, :1], k, v, S // 2, torch.float32)
-    Hl = H // m
+    blocks = [tattn._head_block(H, m, r) for r in range(m)]
+    assert [lo for lo, _ in blocks] == list(np.cumsum(
+        [0] + [n for _, n in blocks[:-1]]))
+    assert max(n for _, n in blocks) == -(-H // m)
     parts, parts_d = [], []
-    for r in range(m):
-        kk, vv = tattn._my_kv(k, v, cfg, r, Hl)
-        lo = r * Hl * KH // H
-        assert torch.equal(kk[:, :, 0], k[:, :, lo])
-        mine = q[:, :, r * Hl:(r + 1) * Hl]
+    for lo, Hl in blocks:
+        kk, vv = tattn._my_kv(k, v, cfg, lo, Hl)
+        assert torch.equal(kk[:, :, 0], k[:, :, lo * KH // H])
+        mine = q[:, :, lo:lo + Hl]
         parts.append(tattn.flash_attention(mine, kk, vv, q_block=8,
                                            kv_block=8))
         parts_d.append(tattn._decode_core(mine[:, :1], kk, vv, S // 2,
