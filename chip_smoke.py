@@ -44,16 +44,27 @@ Phases (each prints one line, any failure raises and exits non-zero):
    path makes it), for both ends of the 256 pairs and for their rescued
    mates, and on synthetic sets (the edge cases n == 0, m == 0,
    |n - m| > w and all N; w at 1; paths off the band; long reads at
-   qmax 256), held exactly (score and CIGAR) against the plain version
-   and on 32 tasks of each set against the host ``global_align_cigar``;
-   its device time (torch.profiler, mean of 20), call and plain times,
-   bound and registers on the 512 reads' launch;
+   qmax 256; long tasks on a narrow band, n 400-1,000; tasks past a
+   warp's shared-memory slot, n 3,300-3,800; bands of 1,024 columns or
+   more; the three paths mixed in one call), held exactly (score and
+   CIGAR) against the plain version and on 32 tasks of each set against
+   the host ``global_align_cigar``, with the tasks each path of the
+   kernel took (shared / global decisions / wide); then on the 512
+   reads' launch and on the long reads' its device time (torch.profiler,
+   mean of 20), the wrapper's call (one host read of the lengths), the
+   pipeline's launch on a host plan, the plain version's time, the bound,
+   the columns a lane (k), a CTA's shared memory, the resident CTAs a SM
+   and the tasks on each path; and every galign kernel's registers and
+   spill bytes (ptxas);
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
-   set to 0 just before and read just after; one primary SAM line per
-   read, reads/s, the stage breakdown, finalize's split (the galign
-   call, the decision replay, the CIGARs' application, the SAM lines'
-   formatting), SMEM rounds and the truth-recovery share;
+   set to 0 just before and read just after, and the earlier phases'
+   cyclic garbage collected before (``gc_s``, ``gc_full``: the
+   collector's seconds and full collections inside the run, here and in
+   phase 7); one primary SAM line per read, reads/s, the stage
+   breakdown, finalize's split (the galign call, the decision replay,
+   the CIGARs' application, the SAM lines' formatting), SMEM rounds and
+   the truth-recovery share;
 6. card against CPU: the first 256 reads through ``Aligner(device="cpu")``
    give SAM body lines byte-identical to the card's;
 7. paired-end main path: 1,024 simulated pairs (2,048 reads) through
@@ -170,10 +181,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -400,6 +413,28 @@ def kernel_ms(fn, kernel: str, launches: int) -> float:
         print(f"  profiler: no device time for {kernel} in session "
               f"{attempt + 1}", flush=True)
     raise AssertionError(f"the profiler saw no device time for {kernel}")
+
+
+@contextlib.contextmanager
+def collector_time():
+    """Collect the cyclic garbage of earlier phases first (a ``mem`` run
+    starts in a process without it), then add up the garbage collector's
+    pauses inside the block: ``{"gc_s": seconds, "gc_full": full
+    collections}``, filled in on exit."""
+    gc.collect()
+    out, start = {"gc_s": 0.0, "gc_full": 0}, [0.0]
+
+    def hook(phase_, info):
+        if phase_ == "start":
+            start[0] = time.perf_counter()
+        else:
+            out["gc_s"] += time.perf_counter() - start[0]
+            out["gc_full"] += info["generation"] == 2
+    gc.callbacks.append(hook)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(hook)
 
 
 def smi(query: str) -> str:
@@ -838,7 +873,11 @@ def synthetic_galign_tasks() -> dict:
     |n - m| > w, all N); w at 1 on related pairs of 60-129 bases; paths
     off the band (a target's shifted copy, offset 5-40 against a
     half-width of 1-4); long reads (n 200-256, so qmax 256, w up to
-    120)."""
+    120); long tasks on a narrow band (n 400-1,000, w 1-20); tasks whose
+    decisions outgrow a warp's shared-memory slot (n 3,300-3,800, w 10-15:
+    the global-decision path); bands of 1,024 columns or more (n 1,030-
+    1,060, w 600: the wide path); and one set that mixes the three
+    paths in one call."""
     rng = np.random.default_rng(23)
     r = lambda k: rng.integers(0, 5, k)          # noqa: E731
     edge = [(r(0), r(0), 5), (r(0), r(7), 1), (r(9), r(0), 3),
@@ -857,7 +896,18 @@ def synthetic_galign_tasks() -> dict:
     ql = rng.integers(200, 257, 256).tolist()
     qs, ts = related(rng, ql, [q + int(rng.integers(-20, 40)) for q in ql])
     long = [(q, t, int(rng.integers(10, 121))) for q, t in zip(qs, ts)]
-    return {"edge": edge, "w1": w1, "off_band": off, "long_query": long}
+    sets = {"edge": edge, "w1": w1, "off_band": off, "long_query": long}
+    for name, count, lo, hi, span, ws in (
+            ("long_narrow", 64, 400, 1001, 8, (1, 21)),
+            ("global_path", 4, 3300, 3801, 4, (10, 16)),
+            ("wide", 2, 1030, 1061, 4, (600, 601))):
+        ql = rng.integers(lo, hi, count).tolist()
+        qs, ts = related(rng, ql, [q + int(rng.integers(-span, span + 1))
+                                   for q in ql])
+        sets[name] = [(q, t, int(rng.integers(*ws))) for q, t in zip(qs, ts)]
+    sets["mixed"] = (edge[:4] + sets["long_narrow"][:4]
+                     + sets["global_path"][:1] + sets["wide"][:1])
+    return sets
 
 
 def galign_cells(tasks) -> int:
@@ -887,15 +937,65 @@ def galign_bound_ms(tasks, cells: int, runs: int) -> tuple[float, str]:
             "operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def kernel_regs(*names: str) -> str:
+    """``{registers}r/{spill stores}+{spill loads}s`` of the kernel whose
+    mangled name holds ``names``, from this run's ptxas report."""
+    rep = ptxas_resources(*names)
+    regs = re.search(r"Used (\d+) registers", rep)
+    sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", rep)
+    if not regs or not sp:
+        return "not_built_in_this_run"
+    return f"{regs.group(1)}r/{sp.group(1)}+{sp.group(2)}s"
+
+
+def galign_ptxas() -> str:
+    """Registers and spill bytes of every galign kernel, by instantiation:
+    ``k4`` is galign_kernel<4, false> (decisions in shared memory), ``k4g``
+    its global-decision twin, ``wide`` galign_wide_kernel."""
+    names = [(f"k{k}{tag}", (f"galign_kernelILi{k}ELb{flag}E",))
+             for k in galign_ops.KS for tag, flag in (("", 0), ("g", 1))]
+    names.append(("wide", ("galign_wide_kernel",)))
+    return ",".join(f"{tag}:{kernel_regs(*n)}" for tag, n in names)
+
+
+def time_galign(tasks, dev, p: BSWParams) -> dict:
+    """One launch over ``tasks`` as finalize makes it: the kernel's device
+    time, the wrapper ``galign_call`` (one host read of the lengths), the
+    pipeline's ``galign_launch`` on a plan made from host arrays (no host
+    read), the plain version, and the bound."""
+    arrays = galign_ops.pack(tasks)
+    pl = galign_ops.plan(*arrays[2:])
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    cells = galign_cells(tasks)
+    runs = int(galign_call(*args, p)[1].sum())
+    bound, by = galign_bound_ms(tasks, cells, runs)
+    return dict(
+        tasks=len(tasks), nmax=args[0].shape[1], mmax=args[1].shape[1],
+        cells=cells, runs=runs, k=pl.k, smem_cta=pl.smem_cta,
+        resident_ctas=galign_ops.resident_ctas(pl),
+        paths=f"{pl.n_smem}/{pl.n_global}/{pl.n_wide}",
+        ptxas=f"k{pl.k}:" + kernel_regs(f"galign_kernelILi{pl.k}ELb0E"),
+        ms=kernel_ms(lambda: galign_call(*args, p), "galign_kernel", 1),
+        call_ms=cuda_ms(lambda: galign_call(*args, p)),
+        launch_ms=cuda_ms(lambda: galign_ops.galign_launch(*args, p, pl)),
+        plain_ms=cuda_ms(lambda: galign_ref(*args, p), reps=3),
+        bound_ms=bound, bound_by=by)
+
+
 def check_galign(sets: dict, dev) -> dict:
     """Every task set held exactly (score and CIGAR) against the plain
     version on the same card tensors, and ``GALIGN_HOST_SAMPLE`` of each
-    against the host ``global_align_cigar``; then the real SE set, in one
-    launch as finalize makes it, timed beside its bound."""
+    against the host ``global_align_cigar``, with the tasks each path of
+    the kernel took; then the real SE set and the long reads, each in one
+    launch as finalize makes it, timed beside their bounds."""
     p = BSWParams()
     err, n_tasks, n_host = 0, 0, 0
+    paths = np.zeros(3, np.int64)
     for name, tasks in sets.items():
-        args = [torch.from_numpy(a).to(dev) for a in galign_ops.pack(tasks)]
+        arrays = galign_ops.pack(tasks)
+        pl = galign_ops.plan(*arrays[2:])
+        paths += (pl.n_smem, pl.n_global, pl.n_wide)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
         out, want = galign_call(*args, p), galign_ref(*args, p)
         err = max(err, int((out[0] - want[0]).abs().max()))
         got = galign_ops.unpack(*out)
@@ -911,25 +1011,31 @@ def check_galign(sets: dict, dev) -> dict:
                                      f"on set {name}, task {k}")
             n_host += 1
         n_tasks += len(tasks)
+    if not paths.all():
+        raise AssertionError(f"a galign path ran on no task: shared/global/"
+                             f"wide {paths.tolist()}")
     phase("galign_exact", sets=",".join(f"{k}:{len(v)}" for k, v in
                                         sets.items()),
-          tasks=n_tasks, host_checked=n_host, max_abs_err=err)
-    timed = sets["real_se"]
-    args = [torch.from_numpy(a).to(dev) for a in galign_ops.pack(timed)]
-    cells = galign_cells(timed)
-    runs = int(galign_call(*args, p)[1].sum())
-    call = cuda_ms(lambda: galign_call(*args, p))
-    ms = kernel_ms(lambda: galign_call(*args, p), "galign_kernel", 1)
-    plain = cuda_ms(lambda: galign_ref(*args, p), reps=3)
-    bound, by = galign_bound_ms(timed, cells, runs)
-    phase("galign", tasks=len(timed), nmax=args[0].shape[1],
-          mmax=args[1].shape[1], cells=cells, runs=runs,
-          ptxas=ptxas_resources("galign_kernel").replace(" ", "_"),
-          kernel_ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
-          plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.6f}", bound_by=by,
+          tasks=n_tasks, host_checked=n_host, max_abs_err=err,
+          paths="/".join(map(str, paths)))
+    timed = {name: time_galign(sets[name], dev, p)
+             for name in ("real_se", "long_query")}
+    for name, t in timed.items():
+        phase("galign", set=name, tasks=t["tasks"], nmax=t["nmax"],
+              mmax=t["mmax"], cells=t["cells"], runs=t["runs"], k=t["k"],
+              smem_cta=t["smem_cta"], resident_ctas=t["resident_ctas"],
+              paths=t["paths"], ptxas=t["ptxas"],
+              kernel_ms=f"{t['ms']:.4f}",
+              call_ms=f"{t['call_ms']:.4f}",
+              launch_ms=f"{t['launch_ms']:.4f}",
+              plain_ms=f"{t['plain_ms']:.4f}",
+              bound_ms=f"{t['bound_ms']:.6f}", bound_by=t["bound_by"])
+    phase("galign_build", ptxas=galign_ptxas(),
           launches_phase4=kernels.launch_counts()["galign"])
-    return {"galign": dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bound, bound_by=by)}
+    se = timed["real_se"]
+    return {"galign": dict(max_abs_err=err, ms=se["ms"],
+                           plain_ms=se["plain_ms"], bound_ms=se["bound_ms"],
+                           bound_by=se["bound_by"])}
 
 
 def finalize_split(snap: dict, what: str) -> None:
@@ -1032,12 +1138,13 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(["mem", str(fa), str(fq1), str(fq2), "-o", str(sam),
-                       "--device", "cuda", "-b", str(N_PAIRS), "--no-pg",
-                       "--profile", str(prof)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with collector_time() as gct:
+            t0 = time.perf_counter()
+            rc = cli.main(["mem", str(fa), str(fq1), str(fq2), "-o",
+                           str(sam), "--device", "cuda", "-b", str(N_PAIRS),
+                           "--no-pg", "--profile", str(prof)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
     finally:
         pe.run_rescues_batched, pe.merge_rescues = run_rescues, merge
@@ -1054,7 +1161,8 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     if fr_failed:
         raise AssertionError("FR insert-size stats failed on the PE batch")
     phase("mem_pe", pairs=N_PAIRS, reads=2 * N_PAIRS, wall_s=f"{wall:.2f}",
-          pairs_per_s=f"{N_PAIRS / wall:.1f}",
+          pairs_per_s=f"{N_PAIRS / wall:.1f}", gc_s=f"{gct['gc_s']:.3f}",
+          gc_full=gct["gc_full"],
           reads_per_s=f"{2 * N_PAIRS / wall:.1f}", occ_kernel=picked,
           proper_share=f"{proper:.4f}", n_rescued=int(snap["n_rescued"]),
           fr_avg=f"{fr_avg:.2f}", fr_std=f"{fr_std:.2f}",
@@ -2506,12 +2614,13 @@ def main() -> int:
         sam, prof = tmp / "out.sam", tmp / "prof.json"
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(["mem", str(fa), str(fq), "-o", str(sam), "--device",
-                       "cuda", "-b", str(N_READS), "--no-pg", "--profile",
-                       str(prof)])
-        torch.cuda.synchronize()
-        wall_mem = time.perf_counter() - t0
+        with collector_time() as gct:
+            t0 = time.perf_counter()
+            rc = cli.main(["mem", str(fa), str(fq), "-o", str(sam),
+                           "--device", "cuda", "-b", str(N_READS), "--no-pg",
+                           "--profile", str(prof)])
+            torch.cuda.synchronize()
+            wall_mem = time.perf_counter() - t0
         launches = kernels.launch_counts()
         if rc != 0:
             raise AssertionError(f"repro_torch.cli mem exited {rc}")
@@ -2532,6 +2641,7 @@ def main() -> int:
                   if r["time_s"]}
         phase("mem", reads=N_READS, wall_s=f"{wall_mem:.2f}",
               reads_per_s=f"{N_READS / wall_mem:.1f}", occ_kernel=picked,
+              gc_s=f"{gct['gc_s']:.3f}", gc_full=gct["gc_full"],
               launches=json.dumps(launches, separators=(",", ":")),
               smem_rounds=int(snap["smem_rounds"]),
               smem_h2d_bytes=int(snap["smem_h2d_bytes"]),

@@ -37,8 +37,9 @@ SIGNATURES = {
     "fmocc_ext_eta128": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsw_extend": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _I, _I, _I, _P),
-    "galign": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-               _I, _I, _I, _I, _P, _P, _P, _I, _P),
+    "galign": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "galign_occupancy": (_I, _I, _P),
 }
 
 _LOCK = threading.Lock()

@@ -243,3 +243,129 @@ def test_the_wrapper_refuses_what_it_cannot_compute():
         gops.unpack(torch.tensor([0]), torch.tensor([-1]),
                     torch.zeros((1, 1), dtype=torch.int32))
     assert galign.global_align_batch([], p, device="cpu") == []
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        galign.global_align_batch([(np.zeros(5, np.int64),
+                                    np.zeros(6, np.int64), 2)], p,
+                                  device="meta")
+
+
+# ------------------------------ the host plan ------------------------------
+
+def _up16(x):
+    return (x + 15) // 16 * 16
+
+
+# (tasks as (n, m, w), then by hand: the runs' stride, k, a warp's
+# shared-memory slot, tasks on the shared / global / wide paths, global
+# scratch bytes, wide row int32).  A slot is n RB bytes of decisions, RB =
+# ceil(W / k) k / 2 with W = min(m, 2 max(w, |n - m| + 3) + 1), then
+# 4 (n + m) bytes of runs, each rounded up to 16; k is the least power of
+# two from 2 with 32 k > W.
+PLAN_CASES = {
+    # n == 0 and m == 0 take the shared path with no slot
+    "n0": ([(0, 7, 1)], 7, 2, 0, (1, 0, 0), 0, 0),
+    "m0": ([(9, 0, 3)], 9, 2, 0, (1, 0, 0), 0, 0),
+    # w = 1 on n = m = 60: w 3, W 7, RB 4: 240 + 480 = 720
+    "w1": ([(60, 60, 1)], 120, 2, 720, (1, 0, 0), 0, 0),
+    # |n - m| > w: w = 42, W = min(1, 85) = 1, RB 1: 48 + 164 -> 224
+    "gap": ([(40, 1, 2)], 41, 2, 224, (1, 0, 0), 0, 0),
+    # a 101-base read on the BSW band: W 101, k 4, RB 52: 5264 + 808
+    "read101": ([(101, 101, 100)], 202, 4, 6080, (1, 0, 0), 0, 0),
+    # W 21, RB 11: 33,638 -> 33,648, + 24,464 = 58,112 = SLOT_MAX
+    "at_limit": ([(3058, 3058, 10)], 6116, 2, 58112, (1, 0, 0), 0, 0),
+    # one more base: 33,664 + 24,472 -> 58,144 bytes of global scratch
+    "above_limit": ([(3059, 3059, 10)], 6118, 2, 0, (0, 1, 0), 58144, 0),
+    # W = min(1030, 1201) >= 1,024: the wide path, 1031^2 -> 1,062,976
+    # decision bytes and 4 x 1031 row int32
+    "wide": ([(1030, 1030, 600)], 2060, 2, 0, (0, 0, 1), 1062976, 4124),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_matches_hand_counts(case):
+    tasks, stride, k, slot, paths, nbits, nrows = PLAN_CASES[case]
+    n, m, w = (np.array(c, np.int32) for c in zip(*tasks))
+    pl = gops.plan(n, m, w)
+    assert (pl.stride, pl.k, pl.slot) == (stride, k, slot)
+    assert (pl.n_smem, pl.n_global, pl.n_wide) == paths
+    assert (pl.nbits, pl.nrows) == (nbits, nrows)
+    assert pl.smem_cta == gops.WARPS * slot
+    assert gops.SLOT_MAX == 58112 and gops.WARPS * gops.SLOT_MAX <= 232448
+
+
+def test_plan_orders_paths_longest_first_and_packs_scratch():
+    tasks = [(101, 101, 100), (0, 5, 1), (3059, 3059, 10), (1030, 1030, 600),
+             (150, 150, 100), (3100, 3100, 10), (60, 60, 1)]
+    n, m, w = (np.array(c, np.int32) for c in zip(*tasks))
+    pl = gops.plan(n, m, w)
+    # shared (slot largest first, the empty task last), global, wide
+    assert pl.order.tolist() == [4, 0, 6, 1, 5, 2, 3]
+    assert (pl.n_smem, pl.n_global, pl.n_wide) == (4, 2, 1)
+    # k 8 for the widest shared-or-global band (W 151 needs 32 k > 151);
+    # task 4's slot: RB = ceil(151 / 8) 4 = 76, 150 x 76 = 11,400 + 1,200
+    assert pl.k == 8 and pl.slot == 12608
+    # global slots at k 8: RB = ceil(21 / 8) 4 = 12
+    g2 = _up16(_up16(3059 * 12) + 4 * 6118)
+    g5 = _up16(_up16(3100 * 12) + 4 * 6200)
+    wide = _up16(1031 * 1031)
+    # the global scratch holds them in task order, disjoint
+    assert pl.boff[[2, 3, 5]].tolist() == [0, g2, g2 + wide]
+    assert pl.nbits == g2 + g5 + wide
+    assert pl.roff[3] == 0 and pl.nrows == 4 * 1031
+
+
+def test_plan_is_host_only_and_guards_int32():
+    pl = gops.plan([], [], [])
+    assert (pl.stride, pl.most, pl.n_smem, pl.nbits) == (1, 0, 0, 0)
+    p = BSWParams()
+    gops.check_range(None, None, p, most=pl.most)
+    with pytest.raises(ValueError, match="int32"):
+        gops.check_range(None, None, p, most=1 << 26)
+    with pytest.raises(ValueError, match="signed byte"):
+        gops.check_range([1], [1], BSWParams(a=200))
+    x = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        gops.galign_launch(x.to(torch.uint8)[None], x.to(torch.uint8)[None],
+                           x, x, x, p, gops.plan([1], [1], [1]))
+
+
+# ------------------------- the synthetic long sets -------------------------
+
+def related_tasks(rng, count, lo, hi, span, wlo, whi):
+    """``count`` tasks: queries of lo..hi - 1 bases, targets that copy
+    them with ~5% substitutions and differ in length by up to ``span``,
+    half-widths wlo..whi - 1."""
+    tasks = []
+    for _ in range(count):
+        n = int(rng.integers(lo, hi))
+        m = n + int(rng.integers(-span, span + 1))
+        q = rng.integers(0, 4, n)
+        t = rng.integers(0, 4, m)
+        k = min(n, m)
+        t[:k] = np.where(rng.random(k) < 0.05, rng.integers(0, 4, k), q[:k])
+        tasks.append((q, t, int(rng.integers(wlo, whi))))
+    return tasks
+
+
+@pytest.mark.parametrize("name", ["long_narrow", "global_path", "wide"])
+def test_wrapper_on_cpu_equals_reference_on_the_long_sets(name):
+    """The sets the card's phase 4 adds, cut to a few tasks: long tasks on
+    a narrow band, tasks past a warp's shared-memory slot, and a band of
+    1,024 columns or more.  On CPU tensors the wrapper is the plain
+    version, equal to the reference's host function."""
+    rng = np.random.default_rng({"long_narrow": 41, "global_path": 42,
+                                 "wide": 43}[name])
+    tasks = {"long_narrow": lambda: related_tasks(rng, 3, 400, 1001, 8, 1,
+                                                  21),
+             "global_path": lambda: related_tasks(rng, 1, 3100, 3201, 4, 10,
+                                                  16),
+             "wide": lambda: related_tasks(rng, 1, 1030, 1040, 4, 600,
+                                           601)}[name]()
+    pl = gops.plan(*gops.pack(tasks)[2:])
+    want_path = {"long_narrow": 0, "global_path": 1, "wide": 2}[name]
+    assert [pl.n_smem, pl.n_global, pl.n_wide][want_path] == len(tasks)
+    args = [torch.from_numpy(a) for a in gops.pack(tasks)]
+    got = galign.galign_call(*args, BSWParams())
+    want = galign.ops.galign_ref(*args, BSWParams())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert_equal_to_reference(tasks)
