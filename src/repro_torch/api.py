@@ -590,15 +590,18 @@ class Aligner:
                                 break
                             bt0 = time.perf_counter()
                             paired = hasattr(b, "reads1")
-                            if paired:
-                                res = self.align_pairs(b, engine=engine)
-                                n_reads += 2 * len(b)
-                            else:
-                                res = self.align(b, engine=engine)
-                                n_reads += len(b)
-                            with obs.span("io"), obs.span("sam_format"):
-                                for ln in res.sam():
-                                    print(ln, file=fh)
+                            # the chunk's index is the run log's batch
+                            with obs.chunk(n_batches):
+                                if paired:
+                                    res = self.align_pairs(b, engine=engine)
+                                    n_reads += 2 * len(b)
+                                else:
+                                    res = self.align(b, engine=engine)
+                                    n_reads += len(b)
+                                with obs.span("io"), \
+                                        obs.span("sam_format"):
+                                    for ln in res.sam():
+                                        print(ln, file=fh)
                             n_records += res.n_records
                             n_batches += 1
                             with stats_lock:

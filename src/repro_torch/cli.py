@@ -64,7 +64,12 @@ talks to it.  SIGINT drains the queued requests and exits 0.
 
 ``--profile out.json`` turns on telemetry and writes the paper-style
 kernel-breakdown profile; ``--trace out.trace.json`` also collects
-Chrome trace events.  A profiled run also writes a structured JSONL run
+Chrome trace events: the host's spans, each carrying its ``-K`` chunk's
+index as ``args.chunk`` (the run log's ``batch``), a device track with
+every kernel launch timed by CUDA events (``cat: "device"``, placed on
+the host clock), and under ``otherData.clock_pairs`` pairs of
+(``perf_counter`` s, Unix ns) taken back to back, which put the spans on
+``torch.profiler``'s clock.  A profiled run also writes a structured JSONL run
 log (``--runlog``; manifest, per-batch progress, captured warnings,
 crash bundle) and live metrics files rewritten atomically during the run
 (``--live``; snapshot JSON + Prometheus textfile).  ``report``
@@ -520,7 +525,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "report`)")
     mm.add_argument("--trace", default=None, metavar="JSON",
                     help="also collect Chrome trace events (Perfetto / "
-                         "chrome://tracing) and write them here")
+                         "chrome://tracing) and write them here: host "
+                         "spans with their chunk ids, a device track of "
+                         "the kernel launches (CUDA events) and clock "
+                         "pairs (perf_counter, Unix ns)")
     mm.add_argument("--runlog", default=None, metavar="JSONL",
                     help="structured run-log path: one JSON event per "
                          "line (manifest, per-batch progress, warnings, "

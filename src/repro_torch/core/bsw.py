@@ -378,7 +378,6 @@ def bsw_extend_tasks(queries, targets, h0s, p: BSWParams,
         for i, r in zip(idxs, res):
             results[i] = r
         obs.count("bsw_dispatches")
-        obs.observe("bsw_block_lanes", len(idxs))
         stats["tasks"] += len(idxs)
         stats["cells_useful"] += int((np.array([len(q) for q in qs]) *
                                       np.array([len(t) for t in ts])).sum())

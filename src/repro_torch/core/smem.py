@@ -237,22 +237,37 @@ def _ext_round(idx: FMIndex, which: str, k, l, s, c, occ_fn, live):
     go to the device as ONE int32 (4, n) tensor, ``ext_round`` extends
     them there, and (k', l', s') come back as one (3, n) copy, scattered
     into int64 arrays of ``live``'s shape.  The other positions hold 0:
-    the callers read no result outside ``live``."""
+    the callers read no result outside ``live``.
+
+    Spans: ``smem.pack`` (the gather of the live entries),
+    ``smem.round`` (the copy in, the launch and the readback that waits
+    for it), ``smem.unpack`` (twice: the zero-filled output, made first
+    as it always was, and the scatter); counters ``smem_live_entries``
+    (n) and ``smem_round_slots`` (the dense positions scanned and
+    filled)."""
     obs.count("smem_rounds")
-    out = np.zeros((3, *live.shape), np.int64)
-    sel = np.nonzero(live)
-    n = len(sel[0])
+    with obs.span("smem.unpack"):
+        out = np.zeros((3, *live.shape), np.int64)
+    with obs.span("smem.pack"):
+        sel = np.nonzero(live)
+        n = len(sel[0])
+        if n:
+            host = np.empty((4, n), np.int32)
+            for row, a in zip(host, (k, l, s, c)):
+                row[:] = np.broadcast_to(a, live.shape)[sel]
+    obs.count("smem_live_entries", n)
+    obs.count("smem_round_slots", live.size)
     if n:
-        host = np.empty((4, n), np.int32)
-        for row, a in zip(host, (k, l, s, c)):
-            row[:] = np.broadcast_to(a, live.shape)[sel]
         dev = occ_fn.device
-        st = torch.from_numpy(host).to(dev)
-        got = ext_round(idx.device(dev), which, *st, layout=occ_fn.layout,
-                        block=occ_fn.block).cpu().numpy()
+        with obs.span("smem.round"):
+            st = torch.from_numpy(host).to(dev)
+            got = ext_round(idx.device(dev), which, *st,
+                            layout=occ_fn.layout,
+                            block=occ_fn.block).cpu().numpy()
         obs.count("smem_h2d_bytes", host.nbytes)
         obs.count("smem_d2h_bytes", got.nbytes)
-        out[(slice(None), *sel)] = got
+        with obs.span("smem.unpack"):
+            out[(slice(None), *sel)] = got
     return out[0], out[1], out[2]
 
 
@@ -355,36 +370,39 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         # per-slot sweep, vectorized ACROSS tasks (the entry-list order
         # semantics only reference per-task running state: the count of
         # kept entries and the last kept size)
-        pmax = int(prev_n[active].max()) if active.any() else 0
-        n_new = np.zeros(T, np.int64)
-        last_s = np.full(T, -1, np.int64)
-        for j in range(pmax):
-            live = active & (j < prev_n)
-            fails = live & ((c < 0) | (ok_s[:, j] < min_intv))
-            # emission: first failing entry this round, not contained
-            emit = fails & (n_new == 0) & (
-                (mem_n == 0) |
-                (i_t + 1 < mem_qb[np.arange(T), np.maximum(mem_n - 1, 0)]))
-            eidx = np.nonzero(emit)[0]
-            if eidx.size:
-                m = mem_n[eidx]
-                assert (m < M).all(), "SMEM mem cap overflow"
-                mem_k[eidx, m] = prev_k[eidx, j]
-                mem_l[eidx, m] = prev_l[eidx, j]
-                mem_s[eidx, m] = prev_s[eidx, j]
-                mem_qb[eidx, m] = i_t[eidx] + 1
-                mem_qe[eidx, m] = prev_e[eidx, j]
-                mem_n[eidx] += 1
-            keep = live & ~fails & ((n_new == 0) | (ok_s[:, j] != last_s))
-            kidx = np.nonzero(keep)[0]
-            if kidx.size:
-                slot = n_new[kidx]
-                curr_k[kidx, slot] = ok_k[kidx, j]
-                curr_l[kidx, slot] = ok_l[kidx, j]
-                curr_s[kidx, slot] = ok_s[kidx, j]
-                curr_e[kidx, slot] = prev_e[kidx, j]
-                n_new[kidx] += 1
-                last_s[kidx] = ok_s[kidx, j]
+        with obs.span("smem.sweep"):
+            pmax = int(prev_n[active].max()) if active.any() else 0
+            n_new = np.zeros(T, np.int64)
+            last_s = np.full(T, -1, np.int64)
+            for j in range(pmax):
+                live = active & (j < prev_n)
+                fails = live & ((c < 0) | (ok_s[:, j] < min_intv))
+                # emission: first failing entry this round, not contained
+                emit = fails & (n_new == 0) & (
+                    (mem_n == 0) |
+                    (i_t + 1 < mem_qb[np.arange(T),
+                                      np.maximum(mem_n - 1, 0)]))
+                eidx = np.nonzero(emit)[0]
+                if eidx.size:
+                    m = mem_n[eidx]
+                    assert (m < M).all(), "SMEM mem cap overflow"
+                    mem_k[eidx, m] = prev_k[eidx, j]
+                    mem_l[eidx, m] = prev_l[eidx, j]
+                    mem_s[eidx, m] = prev_s[eidx, j]
+                    mem_qb[eidx, m] = i_t[eidx] + 1
+                    mem_qe[eidx, m] = prev_e[eidx, j]
+                    mem_n[eidx] += 1
+                keep = live & ~fails & ((n_new == 0) |
+                                        (ok_s[:, j] != last_s))
+                kidx = np.nonzero(keep)[0]
+                if kidx.size:
+                    slot = n_new[kidx]
+                    curr_k[kidx, slot] = ok_k[kidx, j]
+                    curr_l[kidx, slot] = ok_l[kidx, j]
+                    curr_s[kidx, slot] = ok_s[kidx, j]
+                    curr_e[kidx, slot] = prev_e[kidx, j]
+                    n_new[kidx] += 1
+                    last_s[kidx] = ok_s[kidx, j]
         prev_n = np.where(active, n_new, prev_n)
         active = active & (n_new > 0)
         prev_k, curr_k = curr_k, prev_k

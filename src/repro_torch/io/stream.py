@@ -60,8 +60,6 @@ def _note_batch(n_reads: int, cells: int, base_count: int) -> None:
     obs.count("io_batches")
     obs.count("io_reads", n_reads)
     obs.count("io_bases", base_count)
-    obs.count("io_cells", cells)
-    obs.count("io_cells_pad", cells - base_count)
     if cells:
         obs.observe("io_pad_frac", (cells - base_count) / cells,
                     edges=obs.RATIO_EDGES)

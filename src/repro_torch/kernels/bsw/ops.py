@@ -84,11 +84,12 @@ def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
     out = torch.empty((6, W), dtype=torch.int32, device=dev)
     if W == 0:
         return out
-    lib = build.library()
-    err = lib.bsw_extend(
-        *(t.data_ptr() for t in args), W, qmax, tmax, p.a, p.b, p.o_del,
-        p.e_del, p.o_ins, p.e_ins, p.zdrop, out.data_ptr(), ctas, warps,
-        smem // warps, torch.cuda.current_stream(dev).cuda_stream)
+    entry = build.library().bsw_extend
+    call = (*(t.data_ptr() for t in args), W, qmax, tmax, p.a, p.b, p.o_del,
+            p.e_del, p.o_ins, p.e_ins, p.zdrop, out.data_ptr(), ctas, warps,
+            smem // warps, torch.cuda.current_stream(dev).cuda_stream)
+    with obs.device_span("bsw", dev, build.GATE):
+        err = entry(*call)
     build.check(err, "bsw")
     build.count_launch(LAUNCHES, "bsw")
     return out

@@ -40,7 +40,14 @@ SIGNATURES = {
     "galign": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "galign_occupancy": (_I, _I, _P),
+    "gate_alloc": (_P, _P),
+    "gate_wait": (_P, _P, ctypes.c_uint),
+    "fmocc_load": (),
+    "bsw_load": (),
+    "galign_load": (),
 }
+#: entry points that load a source's kernels (LaunchGate calls them all)
+LOADERS = tuple(name for name in SIGNATURES if name.endswith("_load"))
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -93,7 +100,7 @@ def _build(target: pathlib.Path) -> str:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = pathlib.Path(tmp) / target.name
         link = subprocess.run([cc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
-                               *map(str, objs)],
+                               *map(str, objs), "-lcuda"],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
@@ -132,3 +139,49 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+
+
+class LaunchGate:
+    """The gate of ``csrc/gate.cu`` for ``obs.device_span``: ``hold``
+    makes the stream wait until the word reaches a new number, and
+    ``release`` writes it once the launch and its end event are
+    enqueued, so the events time the kernel rather than the host's launch
+    path (tens of µs a launch, over kernels of 2-70 µs).  Numbers rise
+    under a lock and the word never goes back, so a later hold's release
+    frees an earlier hold too.  Nothing between a hold and its release may
+    wait for the device, or the stream waits for ever: the first hold
+    loads every kernel of the library (``LOADERS``), since under lazy
+    module loading a kernel's first launch waits for the device."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._value = 0
+        self._word: ctypes.c_uint | None = None
+        self._dev = 0
+
+    def hold(self, stream) -> int:
+        lib = library()
+        with self._lock:
+            if self._word is None:
+                for name in LOADERS:
+                    check(getattr(lib, name)(), name)
+                host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+                check(lib.gate_alloc(ctypes.byref(host), ctypes.byref(dev)),
+                      "gate_alloc")
+                self._word = ctypes.c_uint.from_address(host.value)
+                self._dev = dev.value
+            self._value = (self._value + 1) & 0xFFFFFFFF
+            value = self._value
+        check(lib.gate_wait(stream.cuda_stream, self._dev, value),
+              "gate_wait")
+        return value
+
+    def release(self, value: int) -> None:
+        with self._lock:
+            # the wait compares as int32 differences, so does the word
+            if (value - self._word.value) & 0xFFFFFFFF < 1 << 31:
+                self._word.value = value
+
+
+#: the gate every timed launch of the library holds
+GATE = LaunchGate()

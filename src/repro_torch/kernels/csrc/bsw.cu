@@ -249,6 +249,12 @@ __global__ void bsw_kernel(const int32_t* __restrict__ qs,
 
 }  // namespace
 
+// Load the kernel now (see fmocc_load in fmocc.cu).
+extern "C" int bsw_load() {
+    cudaFuncAttributes a;
+    return (int)cudaFuncGetAttributes(&a, bsw_kernel);
+}
+
 extern "C" int bsw_extend(const void* qs, const void* ts, const void* qlens,
                           const void* tlens, const void* h0s, const void* ws,
                           int W, int qmax, int tmax, int a, int b, int o_del,

@@ -188,6 +188,17 @@ int launch(const void* k, const void* l, const void* s, const void* c,
 
 }  // namespace
 
+// Load both round kernels now (under lazy module loading a kernel loads at
+// its first launch, which waits for the device: a stream held by the launch
+// gate, csrc/gate.cu, would never let it finish).
+extern "C" int fmocc_load() {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, ext_round_kernel<Eta32>);
+    return (int)(e != cudaSuccess ? e
+                                  : cudaFuncGetAttributes(
+                                        &a, ext_round_kernel<Eta128>));
+}
+
 extern "C" int fmocc_ext_eta32(const void* k, const void* l, const void* s,
                                const void* c, const void* counts,
                                const void* rows, const void* C,

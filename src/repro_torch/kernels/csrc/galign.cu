@@ -633,6 +633,17 @@ extern "C" int galign(const void* qs, const void* ts, int qstride,
     return (int)cudaGetLastError();
 }
 
+// Load every galign kernel now (see fmocc_load in fmocc.cu).
+extern "C" int galign_load() {
+    cudaFuncAttributes a;
+    for (int k = 2; k <= 32; k *= 2)
+        for (int global = 0; global < 2; ++global) {
+            const cudaError_t e = cudaFuncGetAttributes(&a, pick(k, global));
+            if (e != cudaSuccess) return (int)e;
+        }
+    return (int)cudaFuncGetAttributes(&a, galign_wide_kernel);
+}
+
 // Resident CTAs a SM of the shared path's kernel for K at smem bytes of
 // dynamic shared memory, into *blocks.
 extern "C" int galign_occupancy(int k, int smem, void* blocks) {

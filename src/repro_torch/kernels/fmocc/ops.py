@@ -81,9 +81,7 @@ def ext_round(fm: FMArrays, which: str, k: torch.Tensor, l: torch.Tensor,
         return _ext_round_cuda(fm, which, k, l, s, c, layout, block)
     with obs.span("kernel.fmocc", cat="kernel", entries=k.numel()):
         obs.count("kernel_fmocc_dispatches")
-        out = _ext_round_cuda(fm, which, k, l, s, c, layout, block)
-        torch.cuda.synchronize(dev)
-    return out
+        return _ext_round_cuda(fm, which, k, l, s, c, layout, block)
 
 
 def _ext_round_cuda(fm: FMArrays, which: str, k, l, s, c, layout: str,
@@ -119,13 +117,14 @@ def _ext_round_cuda(fm: FMArrays, which: str, k, l, s, c, layout: str,
     out = torch.empty((3, *k.shape), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = build.library()
     name = f"fmocc_ext_{layout}"
-    err = getattr(lib, name)(
-        k.data_ptr(), l.data_ptr(), s.data_ptr(), c.data_ptr(),
-        counts.data_ptr(), rows.data_ptr(), fm.C.data_ptr(),
-        fm.primary.data_ptr(), out.data_ptr(), n, int(which == "fwd"), block,
-        torch.cuda.current_stream(dev).cuda_stream)
+    entry = getattr(build.library(), name)
+    args = (k.data_ptr(), l.data_ptr(), s.data_ptr(), c.data_ptr(),
+            counts.data_ptr(), rows.data_ptr(), fm.C.data_ptr(),
+            fm.primary.data_ptr(), out.data_ptr(), n, int(which == "fwd"),
+            block, torch.cuda.current_stream(dev).cuda_stream)
+    with obs.device_span("fmocc", dev, build.GATE):
+        err = entry(*args)
     build.check(err, name)
     build.count_launch(LAUNCHES, name)
     return out

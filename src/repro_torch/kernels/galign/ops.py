@@ -180,16 +180,17 @@ def galign_launch(qs: torch.Tensor, ts: torch.Tensor, ns: torch.Tensor,
     meta = to_device(np.concatenate([pl.order, pl.boff, pl.roff]), dev)
     bits = torch.empty(max(pl.nbits, 1), dtype=torch.uint8, device=dev)
     rows = torch.empty(max(pl.nrows, 1), dtype=torch.int32, device=dev)
-    lib = build.library()
+    entry = build.library().galign
     ptr = meta.data_ptr()
-    err = lib.galign(qs.data_ptr(), ts.data_ptr(), qs.shape[1], ts.shape[1],
-                     ns.data_ptr(), ms.data_ptr(), ws.data_ptr(), ptr,
-                     pl.n_smem, pl.n_global, pl.n_wide, ptr + 8 * T,
-                     ptr + 16 * T, bits.data_ptr(), rows.data_ptr(), pl.k,
-                     pl.slot, p.a, p.b, p.o_del, p.e_del, p.o_ins, p.e_ins,
-                     pl.stride, score.data_ptr(), nruns.data_ptr(),
-                     runs.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+    args = (qs.data_ptr(), ts.data_ptr(), qs.shape[1], ts.shape[1],
+            ns.data_ptr(), ms.data_ptr(), ws.data_ptr(), ptr, pl.n_smem,
+            pl.n_global, pl.n_wide, ptr + 8 * T, ptr + 16 * T,
+            bits.data_ptr(), rows.data_ptr(), pl.k, pl.slot, p.a, p.b,
+            p.o_del, p.e_del, p.o_ins, p.e_ins, pl.stride, score.data_ptr(),
+            nruns.data_ptr(), runs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with obs.device_span("galign", dev, build.GATE):
+        err = entry(*args)
     build.check(err, "galign")
     for count in (pl.n_smem, pl.n_global, pl.n_wide):
         if count:

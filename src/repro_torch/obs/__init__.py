@@ -16,6 +16,9 @@ Instrumented code imports the cheap ambient helpers::
         obs.count("smem_rounds")
 
 which are no-ops (one thread-local read) unless a scope is active.
+``obs.chunk(i)`` opens a ``-K`` chunk's span and tags what runs inside
+it; ``obs.device_span(kernel, device)`` times one kernel launch with
+CUDA events when a tracer is active.
 """
 
 from .export import (EXPORT_VERSION, LiveExporter, prometheus_text,
@@ -27,8 +30,9 @@ from .report import (SHARD_INVARIANT_COUNTERS, STAGES, breakdown,
                      stage_times, write_merged_profile, write_profile)
 from .runlog import (RUNLOG_VERSION, RunLog, index_fingerprint, new_run_id,
                      read_runlog)
-from .trace import (NULL_SPAN, Telemetry, TraceCollector, activate, count,
-                    current, enabled, observe, set_gauge, span)
+from .trace import (NULL_SPAN, Telemetry, TraceCollector, activate, chunk,
+                    count, current, device_span, enabled, observe, set_gauge,
+                    span)
 
 __all__ = [
     "DEFAULT_EDGES", "RATIO_EDGES", "Gauge", "Hist", "MetricsRegistry",
@@ -39,6 +43,7 @@ __all__ = [
     "EXPORT_VERSION", "LiveExporter", "prometheus_text", "write_atomic",
     "RUNLOG_VERSION", "RunLog", "index_fingerprint", "new_run_id",
     "read_runlog",
-    "NULL_SPAN", "Telemetry", "TraceCollector", "activate", "count",
-    "current", "enabled", "observe", "set_gauge", "span",
+    "NULL_SPAN", "Telemetry", "TraceCollector", "activate", "chunk",
+    "count", "current", "device_span", "enabled", "observe", "set_gauge",
+    "span",
 ]

@@ -473,11 +473,13 @@ def test_prometheus_text_rendering():
     assert "repro_export_timestamp_seconds 123.000" in text
 
 
-def test_prometheus_text_equals_reference(world):
+def test_prometheus_text_equals_reference(world, tmp_path):
     """A real run's snapshot (counters, stage timers, gauges, histograms,
     per-batch payloads) renders to the same text in both packages."""
-    idx, reads = world[:2]
-    snap = cpu_aligner(idx, telemetry=True).align(reads).stats
+    idx, _, fq, _ = world
+    # a stream's summary: its io_pad_frac histogram is the run's one
+    snap = cpu_aligner(idx, telemetry=True).stream_sam(
+        open_batches(fq, batch_size=8), str(tmp_path / "o.sam"))["stats"]
     meta = {"run": "r", "engine": "cuda", "shard": "0/1"}
     rsnap = RSnapshot.from_jsonable(json.loads(json.dumps(
         snap.to_jsonable())))
