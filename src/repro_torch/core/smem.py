@@ -12,12 +12,13 @@ with IDENTICAL output (the paper's hard requirement):
   the paper's *batched* reorganization (§3.1 + §4.3): many independent
   (read, start-position) SMEM tasks advance in lockstep rounds; each round
   performs ONE vectorized backward/forward extension for every live task.
-  The task state stays on the host in numpy int64.  Each round sends
-  only its live entries — the ones whose results the loop reads — to the
-  index's device as one (4, n) int32 (k, l, s, c) tensor, runs the whole
-  extension there (``kernels.fmocc.ext_round``: one launch of the fused
-  round kernel, every occ lookup inside it) and brings (3, n) (k', l', s')
-  back in one copy — one device round trip per round.
+  The state stays on the host in numpy, compact: flat arrays of the live
+  entries and of the live tasks, so a round's host work follows its live
+  entries.  Each round sends them — the ones whose results the loop
+  reads — to the index's device as one (4, n) int32 (k, l, s, c) tensor,
+  runs the whole extension there (``kernels.fmocc.ext_round``: one launch
+  of the fused round kernel, every occ lookup inside it) and brings
+  (3, n) (k', l', s') back in one copy — one device round trip per round.
 
 An SMEM is reported as (k, l, s, qbeg, qend): bi-interval + query span.
 """
@@ -217,8 +218,11 @@ def brute_smems(idx: FMIndex, q: np.ndarray):
 
 @dataclasses.dataclass
 class SmemTaskBatch:
-    """Output of a batch of smem1 tasks (padded)."""
-    k: np.ndarray      # (T, M) int32
+    """Output of a batch of smem1 tasks, ragged: one flat (M,) int64 array
+    a field, the SMEMs task by task in task order, each task's sorted by
+    start coordinate."""
+    task: np.ndarray   # the task of each SMEM
+    k: np.ndarray
     l: np.ndarray
     s: np.ndarray
     qbeg: np.ndarray
@@ -227,253 +231,242 @@ class SmemTaskBatch:
     ret: np.ndarray    # (T,) next x
 
 
-def _ext_round(idx: FMIndex, which: str, k, l, s, c, occ_fn, live):
-    """One extension round on ``occ_fn``'s device, of the entries in
-    ``live``.
+_NEVER = np.iinfo(np.int64).max
+
+
+def _ext_round(idx: FMIndex, which: str, host: np.ndarray, occ_fn):
+    """One extension round on ``occ_fn``'s device.
 
     ``occ_fn`` is a configuration callable carrying ``.layout``,
-    ``.block`` and ``.device`` (``kernels.fmocc.make_occ_fn``).  k, l, s
-    and c broadcast to ``live``'s shape; the entries where ``live`` holds
-    go to the device as ONE int32 (4, n) tensor, ``ext_round`` extends
-    them there, and (k', l', s') come back as one (3, n) copy, scattered
-    into int64 arrays of ``live``'s shape.  The other positions hold 0:
-    the callers read no result outside ``live``.
+    ``.block`` and ``.device`` (``kernels.fmocc.make_occ_fn``).  ``host``
+    is a C-contiguous int32 (4, n) array, the rows k, l, s, c of the
+    round's entries, which the caller builds from its flat state (the
+    ``smem.pack`` span) and writes no more: it goes to the device as ONE
+    tensor, ``ext_round`` extends it there, and (k', l', s') come back as
+    one int32 (3, n) array.
 
-    Spans: ``smem.pack`` (the gather of the live entries),
-    ``smem.round`` (the copy in, the launch and the readback that waits
-    for it), ``smem.unpack`` (twice: the zero-filled output, made first
-    as it always was, and the scatter); counters ``smem_live_entries``
-    (n) and ``smem_round_slots`` (the dense positions scanned and
-    filled)."""
+    Span ``smem.round`` (the copy in, the launch and the readback that
+    waits for it); counters ``smem_live_entries`` (n) and
+    ``smem_round_slots`` (the rows of host state the round's work runs
+    over: n, as the state holds the live entries alone)."""
     obs.count("smem_rounds")
-    with obs.span("smem.unpack"):
-        out = np.zeros((3, *live.shape), np.int64)
-    with obs.span("smem.pack"):
-        sel = np.nonzero(live)
-        n = len(sel[0])
-        if n:
-            host = np.empty((4, n), np.int32)
-            for row, a in zip(host, (k, l, s, c)):
-                row[:] = np.broadcast_to(a, live.shape)[sel]
+    n = host.shape[1]
     obs.count("smem_live_entries", n)
-    obs.count("smem_round_slots", live.size)
-    if n:
-        dev = occ_fn.device
-        with obs.span("smem.round"):
-            st = torch.from_numpy(host).to(dev)
-            got = ext_round(idx.device(dev), which, *st,
-                            layout=occ_fn.layout,
-                            block=occ_fn.block).cpu().numpy()
-        obs.count("smem_h2d_bytes", host.nbytes)
-        obs.count("smem_d2h_bytes", got.nbytes)
-        with obs.span("smem.unpack"):
-            out[(slice(None), *sel)] = got
-    return out[0], out[1], out[2]
+    obs.count("smem_round_slots", n)
+    if not n:
+        return np.empty((3, 0), np.int32)
+    dev = occ_fn.device
+    with obs.span("smem.round"):
+        st = torch.from_numpy(host).to(dev)
+        got = ext_round(idx.device(dev), which, *st, layout=occ_fn.layout,
+                        block=occ_fn.block).cpu().numpy()
+    obs.count("smem_h2d_bytes", host.nbytes)
+    obs.count("smem_d2h_bytes", got.nbytes)
+    return got
+
+
+def _pack(kls: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The (4, n) int32 host buffer of a round: rows k, l, s, then c."""
+    with obs.span("smem.pack"):
+        host = np.empty((4, len(c)), np.int32)
+        host[:3] = kls
+        host[3] = c
+    return host
+
+
+def _first_intervals(idx: FMIndex, b: np.ndarray):
+    """(k, l, s) of the single-base strings ``b`` (codes 0..3)."""
+    C = np.asarray(idx.C, np.int64)
+    cnt4 = np.array([idx.init_interval(c)[2] for c in range(4)], np.int64)
+    return C[b], C[3 - b], cnt4[b]
+
+
+def _segments_reversed(recs: np.ndarray) -> np.ndarray:
+    """``recs`` (rows: task, ...) appended in time order, regrouped task
+    by task in task order with each task's records newest first."""
+    recs = recs[:, ::-1]
+    return recs.take(np.argsort(recs[0], kind="stable"), axis=1)
 
 
 def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
                 task_read: np.ndarray, task_x: np.ndarray,
                 task_min_intv: np.ndarray, *,
-                occ_fn: Callable,
-                cap: int | None = None) -> SmemTaskBatch:
+                occ_fn: Callable) -> SmemTaskBatch:
     """Lockstep-batched smem1 over T independent tasks.
 
     Per round, ONE vectorized extension call serves every live (task, entry)
     pair — the device analogue of the paper's software-prefetch batching.
-    Output is bit-identical to calling ``repro.core.smem.smem1`` per task.
+    The state is compact: flat arrays of the live entries in task order
+    (each task's in list order), and of the live tasks, so a round's host
+    work follows its live entries.  Tasks that die drop out.  Output is
+    bit-identical to calling ``smem1`` per task.
     """
     T = len(task_read)
     L = int(reads.shape[1])
-    P = cap or (L + 1)
-    q = reads[task_read]                       # (T, L) uint8
-    lens_t = lens[task_read].astype(np.int64)
-    x = task_x.astype(np.int64)
-    min_intv = np.maximum(task_min_intv.astype(np.int64), 1)
+    qf = np.ascontiguousarray(reads).reshape(-1)
+    rd = np.asarray(task_read, np.int64)
+    x = np.asarray(task_x, np.int64)
+    lens_t = np.asarray(lens, np.int64)[rd]
+    min_intv = np.maximum(np.asarray(task_min_intv, np.int64), 1)
+    b0 = qf[rd * L + np.minimum(x, L - 1)]
+    valid = np.flatnonzero((b0 <= 3) & (x < lens_t))
+    xv = x[valid]
 
-    b0 = q[np.arange(T), np.minimum(x, L - 1)].astype(np.int64)
-    valid0 = (b0 <= 3) & (x < lens_t)
-    C = np.asarray(idx.C)
-    cnt4 = np.array([idx.init_interval(c)[2] for c in range(4)], dtype=np.int64)
-    b0c = np.clip(b0, 0, 3)
-    ik_k = np.where(valid0, C[b0c], 0)
-    ik_l = np.where(valid0, C[3 - b0c], 0)
-    ik_s = np.where(valid0, cnt4[b0c], 0)
-    ik_end = x + 1
+    # ---- forward phase: one column a live task ----
+    # rows: task, k, l, s, x, x's offset in qf, lens - x, min_intv.  At
+    # step ``step`` every live task's interval ends at x + step.
+    F = np.stack([valid, *_first_intervals(idx, b0[valid].astype(np.int64)),
+                  xv, rd[valid] * L + xv, lens_t[valid] - xv,
+                  min_intv[valid]])
+    pushes = [np.empty((5, 0), np.int64)]   # (task, k, l, s, end) in time order
 
-    # ---- forward phase ----
-    curr_k = np.zeros((T, P), np.int64); curr_l = np.zeros((T, P), np.int64)
-    curr_s = np.zeros((T, P), np.int64); curr_e = np.zeros((T, P), np.int64)
-    curr_n = np.zeros(T, np.int64)
-    alive = valid0.copy()
+    def push(mask):
+        rec = F[:5].compress(mask, axis=1)
+        rec[4] += step
+        pushes.append(rec)
 
-    def push(mask, kk, ll, ss, ee):
-        idxs = np.nonzero(mask)[0]
-        slot = curr_n[idxs]
-        assert (slot < P).all(), "SMEM forward cap overflow"
-        curr_k[idxs, slot] = kk[idxs]; curr_l[idxs, slot] = ll[idxs]
-        curr_s[idxs, slot] = ss[idxs]; curr_e[idxs, slot] = ee[idxs]
-        curr_n[idxs] += 1
-
+    # a task that dies in a round leaves F in the next step's one
+    # compaction, with the tasks that end there
+    dead = np.zeros(F.shape[1], bool)
     step = 1
-    while alive.any():
-        i = x + step
-        in_range = alive & (i < lens_t)
-        # tasks whose forward run ends exactly at the read end
-        ended = alive & ~in_range
-        push(ended, ik_k, ik_l, ik_s, ik_end)
-        alive = in_range
-        if not alive.any():
+    while True:
+        go = (F[6] > step) & ~dead         # not at the read's end yet
+        ended = ~(go | dead)
+        if ended.any():
+            push(ended)
+        b = qf.take(F[5] + step, mode="clip")
+        amb = go & (b > 3)                 # ambiguous base: stop fwd extension
+        if amb.any():
+            push(amb)
+            go &= ~amb
+        if not go.all():
+            F = F.compress(go, axis=1); b = b.compress(go)
+        if not F.shape[1]:
             break
-        b = q[np.arange(T), np.minimum(i, L - 1)].astype(np.int64)
-        amb = alive & (b > 3)
-        push(amb, ik_k, ik_l, ik_s, ik_end)
-        alive = alive & ~amb
-        if not alive.any():
-            break
-        ok_k, ok_l, ok_s = _ext_round(idx, "fwd", ik_k, ik_l, ik_s,
-                                      np.clip(b, 0, 4), occ_fn, alive)
-        changed = alive & (ok_s != ik_s)
-        push(changed, ik_k, ik_l, ik_s, ik_end)
-        dead = changed & (ok_s < min_intv)
-        alive = alive & ~dead
-        upd = alive
-        ik_k = np.where(upd, ok_k, ik_k); ik_l = np.where(upd, ok_l, ik_l)
-        ik_s = np.where(upd, ok_s, ik_s); ik_end = np.where(upd, i + 1, ik_end)
+        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ_fn)
+        changed = got[2] != F[3]           # interval size changed
+        if changed.any():
+            push(changed)
+        dead = changed & (got[2] < F[7])
+        with obs.span("smem.unpack"):
+            F[1:4] = got
         step += 1
 
-    # reverse each task's curr list -> longest-first
-    for t in np.nonzero(valid0)[0]:
-        n = curr_n[t]
-        curr_k[t, :n] = curr_k[t, :n][::-1]; curr_l[t, :n] = curr_l[t, :n][::-1]
-        curr_s[t, :n] = curr_s[t, :n][::-1]; curr_e[t, :n] = curr_e[t, :n][::-1]
-    ret = np.where(valid0, np.where(curr_n > 0, curr_e[:, 0], x + 1), x + 1)
+    # each task's list longest first: its pushes newest first
+    recs = _segments_reversed(np.concatenate(pushes, axis=1))
+    cnt = np.bincount(recs[0], minlength=T)[valid]   # >= 1: every run pushes
+    ret = x + 1
+    ret[valid] = recs[4].take(np.cumsum(cnt) - cnt)
 
     # ---- backward phase ----
-    prev_k, prev_l, prev_s, prev_e = curr_k, curr_l, curr_s, curr_e
-    prev_n = curr_n.copy()
-    M = P
-    mem_k = np.zeros((T, M), np.int64); mem_l = np.zeros((T, M), np.int64)
-    mem_s = np.zeros((T, M), np.int64); mem_qb = np.zeros((T, M), np.int64)
-    mem_qe = np.zeros((T, M), np.int64); mem_n = np.zeros(T, np.int64)
-    active = valid0 & (prev_n > 0)
-    i_t = x - 1                               # per-task backward position
-
-    while active.any():
-        c = np.full(T, -1, np.int64)
-        pos_ok = active & (i_t >= 0)
-        bi = q[np.arange(T), np.maximum(np.minimum(i_t, L - 1), 0)].astype(np.int64)
-        c = np.where(pos_ok & (bi <= 3), bi, -1)
-        # one vectorized backward extension for ALL live entries
-        ok_k, ok_l, ok_s = _ext_round(
-            idx, "bwd", prev_k, prev_l, prev_s, np.where(c >= 0, c, 4)[:, None],
-            occ_fn, active[:, None] & (np.arange(P) < prev_n[:, None]))
-        # per-slot sweep, vectorized ACROSS tasks (the entry-list order
-        # semantics only reference per-task running state: the count of
-        # kept entries and the last kept size)
+    # rows: task, i, min_intv, qbeg of the task's last SMEM, read's offset;
+    # a task's entries are the next cnt of kls and end
+    B = np.stack([valid, xv - 1, min_intv[valid],
+                  np.full(len(valid), _NEVER), rd[valid] * L])
+    kls = recs[1:4]
+    end = recs[4]
+    mems = [np.empty((6, 0), np.int64)]   # (task, k, l, s, qbeg, qend)
+    while len(cnt):
+        i = B[1]
+        c = qf.take(B[4] + i, mode="clip")
+        c = np.where((i >= 0) & (c <= 3), c, 4)
+        host = _pack(kls, np.repeat(c, cnt))
+        got = _ext_round(idx, "bwd", host, occ_fn)
+        # the round's sweep, over its entries at once: an entry fails on
+        # an ambiguous base, at the read's start or below min_intv; a
+        # task emits its first entry when that fails (no longer match
+        # survived) and is not contained in its last SMEM; a surviving
+        # entry is kept unless its size equals the task's last survivor's
         with obs.span("smem.sweep"):
-            pmax = int(prev_n[active].max()) if active.any() else 0
-            n_new = np.zeros(T, np.int64)
-            last_s = np.full(T, -1, np.int64)
-            for j in range(pmax):
-                live = active & (j < prev_n)
-                fails = live & ((c < 0) | (ok_s[:, j] < min_intv))
-                # emission: first failing entry this round, not contained
-                emit = fails & (n_new == 0) & (
-                    (mem_n == 0) |
-                    (i_t + 1 < mem_qb[np.arange(T),
-                                      np.maximum(mem_n - 1, 0)]))
-                eidx = np.nonzero(emit)[0]
-                if eidx.size:
-                    m = mem_n[eidx]
-                    assert (m < M).all(), "SMEM mem cap overflow"
-                    mem_k[eidx, m] = prev_k[eidx, j]
-                    mem_l[eidx, m] = prev_l[eidx, j]
-                    mem_s[eidx, m] = prev_s[eidx, j]
-                    mem_qb[eidx, m] = i_t[eidx] + 1
-                    mem_qe[eidx, m] = prev_e[eidx, j]
-                    mem_n[eidx] += 1
-                keep = live & ~fails & ((n_new == 0) |
-                                        (ok_s[:, j] != last_s))
-                kidx = np.nonzero(keep)[0]
-                if kidx.size:
-                    slot = n_new[kidx]
-                    curr_k[kidx, slot] = ok_k[kidx, j]
-                    curr_l[kidx, slot] = ok_l[kidx, j]
-                    curr_s[kidx, slot] = ok_s[kidx, j]
-                    curr_e[kidx, slot] = prev_e[kidx, j]
-                    n_new[kidx] += 1
-                    last_s[kidx] = ok_s[kidx, j]
-        prev_n = np.where(active, n_new, prev_n)
-        active = active & (n_new > 0)
-        prev_k, curr_k = curr_k, prev_k
-        prev_l, curr_l = curr_l, prev_l
-        prev_s, curr_s = curr_s, prev_s
-        prev_e, curr_e = curr_e, prev_e
-        active = active & (i_t >= 0)
-        i_t = i_t - 1
+            ok = got[2] >= np.repeat(np.where(c <= 3, B[2], _NEVER), cnt)
+            starts = np.cumsum(cnt) - cnt
+            emit = ~ok.take(starts) & (i + 1 < B[3])
+            if emit.any():
+                m = np.flatnonzero(emit)
+                st = starts.take(m)
+                B[3, m] = i.take(m) + 1
+                mems.append(np.vstack([B[0].take(m), host[:3].take(st, axis=1),
+                                       B[3].take(m), end.take(st)]))
+            kept = np.flatnonzero(ok)
+            s_k = got[2].take(kept)
+            seg = np.repeat(np.arange(len(cnt)), cnt).take(kept)
+            new = np.ones(len(kept), bool)
+            new[1:] = (s_k[1:] != s_k[:-1]) | (seg[1:] != seg[:-1])
+            kept = kept.compress(new)
+            cnt = np.bincount(seg.compress(new), minlength=len(cnt))
+        with obs.span("smem.unpack"):
+            kls = got.take(kept, axis=1)
+            end = end.take(kept)
+        live = cnt > 0
+        if not live.all():
+            B = B.compress(live, axis=1); cnt = cnt.compress(live)
+        B[1] -= 1
 
-    # reverse mems -> sorted by start coordinate
-    for t in range(T):
-        n = mem_n[t]
-        if n:
-            mem_k[t, :n] = mem_k[t, :n][::-1]; mem_l[t, :n] = mem_l[t, :n][::-1]
-            mem_s[t, :n] = mem_s[t, :n][::-1]
-            mem_qb[t, :n] = mem_qb[t, :n][::-1]; mem_qe[t, :n] = mem_qe[t, :n][::-1]
-    return SmemTaskBatch(mem_k, mem_l, mem_s, mem_qb, mem_qe, mem_n, ret)
+    # each task's SMEMs sorted by start coordinate: newest first
+    out = _segments_reversed(np.concatenate(mems, axis=1))
+    return SmemTaskBatch(*out, n=np.bincount(out[0], minlength=T), ret=ret)
 
 
 def seed_strategy1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
                          task_read: np.ndarray, task_x: np.ndarray,
                          min_len: int, max_intv: int, *,
                          occ_fn: Callable):
-    """Lockstep-batched bwt_seed_strategy1. Returns (mem or None per task, ret)."""
+    """Lockstep-batched bwt_seed_strategy1 over compact state (the live
+    tasks alone). Returns (out (T, 5) k,l,s,qb,qe; has; ret)."""
     T = len(task_read)
     L = int(reads.shape[1])
-    q = reads[task_read]
-    lens_t = lens[task_read].astype(np.int64)
-    x = task_x.astype(np.int64)
-
-    b0 = q[np.arange(T), np.minimum(x, L - 1)].astype(np.int64)
+    qf = np.ascontiguousarray(reads).reshape(-1)
+    rd = np.asarray(task_read, np.int64)
+    x = np.asarray(task_x, np.int64)
+    lens_t = np.asarray(lens, np.int64)[rd]
+    b0 = qf[rd * L + np.minimum(x, L - 1)]
     valid0 = (b0 <= 3) & (x < lens_t)
-    C = np.asarray(idx.C)
-    cnt4 = np.array([idx.init_interval(c)[2] for c in range(4)], dtype=np.int64)
-    b0c = np.clip(b0, 0, 3)
-    ik_k = np.where(valid0, C[b0c], 0)
-    ik_l = np.where(valid0, C[3 - b0c], 0)
-    ik_s = np.where(valid0, cnt4[b0c], 0)
+    valid = np.flatnonzero(valid0)
+    xv = x[valid]
 
-    out = np.zeros((T, 5), np.int64)   # k,l,s,qb,qe
+    out = np.zeros((T, 5), np.int64)
     has = np.zeros(T, bool)
     ret = np.where(valid0, lens_t, x + 1)
-    alive = valid0.copy()
+    # rows: task, k, l, s, x's offset in qf, lens - x
+    F = np.stack([valid, *_first_intervals(idx, b0[valid].astype(np.int64)),
+                  rd[valid] * L + xv, lens_t[valid] - xv])
+    # a task that hits in a round leaves F at the next step's compaction
+    hit = np.zeros(F.shape[1], bool)
     step = 1
-    while alive.any():
-        i = x + step
-        in_range = alive & (i < lens_t)
-        alive = in_range
-        if not alive.any():
+    while True:
+        go = (F[5] > step) & ~hit          # the rest keep ret = lens
+        b = qf.take(F[4] + step, mode="clip")
+        amb = go & (b > 3)
+        if amb.any():
+            t = F[0, amb]
+            ret[t] = x[t] + step + 1
+            go &= ~amb
+        if not go.all():
+            F = F.compress(go, axis=1); b = b.compress(go)
+        if not F.shape[1]:
             break
-        b = q[np.arange(T), np.minimum(i, L - 1)].astype(np.int64)
-        amb = alive & (b > 3)
-        ret = np.where(amb, i + 1, ret)
-        alive = alive & ~amb
-        if not alive.any():
-            break
-        ok_k, ok_l, ok_s = _ext_round(idx, "fwd", ik_k, ik_l, ik_s,
-                                      np.clip(b, 0, 4), occ_fn, alive)
-        hit = alive & (ok_s < max_intv) & ((i - x) >= min_len)
-        good = hit & (ok_s > 0)
-        out[good, 0] = ok_k[good]; out[good, 1] = ok_l[good]
-        out[good, 2] = ok_s[good]; out[good, 3] = x[good]
-        out[good, 4] = i[good] + 1
-        has |= good
-        ret = np.where(hit, i + 1, ret)
-        alive = alive & ~hit
-        upd = alive
-        ik_k = np.where(upd, ok_k, ik_k); ik_l = np.where(upd, ok_l, ik_l)
-        ik_s = np.where(upd, ok_s, ik_s)
+        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ_fn)
+        hit = (got[2] < max_intv) & (step >= min_len)
+        if hit.any():
+            t = F[0, hit]
+            ret[t] = x[t] + step + 1
+            good = hit & (got[2] > 0)
+            g = F[0, good]
+            out[g, :3] = got[:, good].T
+            out[g, 3] = x[g]; out[g, 4] = x[g] + step + 1
+            has[g] = True
+        with obs.span("smem.unpack"):
+            F[1:4] = got
         step += 1
     return out, has, ret
+
+
+def _long_mems(batch: SmemTaskBatch, task_read: np.ndarray, min_len: int):
+    """(read, k, l, s, qbeg, qend) rows of the batch's SMEMs at least
+    ``min_len`` long, in the batch's order."""
+    keep = batch.qend - batch.qbeg >= min_len
+    return np.stack([task_read[batch.task], batch.k, batch.l, batch.s,
+                     batch.qbeg, batch.qend])[:, keep]
 
 
 def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
@@ -485,7 +478,10 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
     """
     R, L = reads.shape
     lens = np.asarray(lens, np.int64)
-    mems: list[list[tuple[int, int, int, int, int]]] = [[] for _ in range(R)]
+    # (read, k, l, s, qbeg, qend) blocks, each read's rows in the order
+    # mem_collect_intv appends them
+    found = [np.empty((6, 0), np.int64)]
+    rows = np.arange(R)
 
     # ---- pass 1: x-loop in lockstep rounds over reads ----
     x = np.zeros(R, np.int64)
@@ -494,39 +490,28 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         active = x < lens
         if not active.any():
             break
-        cur_b = reads[np.arange(R), np.minimum(x, L - 1)]
+        cur_b = reads[rows, np.minimum(x, L - 1)]
         amb = active & (cur_b > 3)
         x[amb] += 1
         run = active & ~amb
         if not run.any():
             continue
-        tr = np.nonzero(run)[0]
+        tr = np.flatnonzero(run)
         batch = smem1_batch(idx, reads, lens, tr, x[tr],
                             np.ones(len(tr), np.int64), occ_fn=occ_fn)
-        for ti, r in enumerate(tr):
-            for m in range(batch.n[ti]):
-                if batch.qend[ti, m] - batch.qbeg[ti, m] >= opt.min_seed_len:
-                    mems[r].append((int(batch.k[ti, m]), int(batch.l[ti, m]),
-                                    int(batch.s[ti, m]), int(batch.qbeg[ti, m]),
-                                    int(batch.qend[ti, m])))
+        found.append(_long_mems(batch, tr, opt.min_seed_len))
         x[tr] = batch.ret
 
     # ---- pass 2: re-seeding, all tasks known upfront -> one batch ----
-    t_read, t_x, t_mi = [], [], []
-    for r in range(R):
-        for (k, l, s, qb, qe) in list(mems[r]):
-            if qe - qb < opt.split_len or s > opt.split_width:
-                continue
-            t_read.append(r); t_x.append((qb + qe) >> 1); t_mi.append(s + 1)
-    if t_read:
-        batch = smem1_batch(idx, reads, lens, np.array(t_read),
-                            np.array(t_x), np.array(t_mi), occ_fn=occ_fn)
-        for ti, r in enumerate(t_read):
-            for m in range(batch.n[ti]):
-                if batch.qend[ti, m] - batch.qbeg[ti, m] >= opt.min_seed_len:
-                    mems[r].append((int(batch.k[ti, m]), int(batch.l[ti, m]),
-                                    int(batch.s[ti, m]), int(batch.qbeg[ti, m]),
-                                    int(batch.qend[ti, m])))
+    # every pass-1 SMEM, read by read in the order found
+    p1 = np.concatenate(found, axis=1)
+    p1 = p1[:, np.argsort(p1[0], kind="stable")]
+    split = p1[:, (p1[5] - p1[4] >= opt.split_len) & (p1[3] <= opt.split_width)]
+    if split.shape[1]:
+        batch = smem1_batch(idx, reads, lens, split[0],
+                            (split[4] + split[5]) >> 1, split[3] + 1,
+                            occ_fn=occ_fn)
+        found.append(_long_mems(batch, split[0], opt.min_seed_len))
 
     # ---- pass 3: forward-only seeds, lockstep x-loop ----
     if opt.max_mem_intv > 0:
@@ -535,21 +520,23 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
             active = x < lens
             if not active.any():
                 break
-            cur_b = reads[np.arange(R), np.minimum(x, L - 1)]
+            cur_b = reads[rows, np.minimum(x, L - 1)]
             amb = active & (cur_b > 3)
             x[amb] += 1
             run = active & ~amb
             if not run.any():
                 continue
-            tr = np.nonzero(run)[0]
+            tr = np.flatnonzero(run)
             out, has, ret = seed_strategy1_batch(
                 idx, reads, lens, tr, x[tr], opt.min_seed_len,
                 opt.max_mem_intv, occ_fn=occ_fn)
-            for ti, r in enumerate(tr):
-                if has[ti]:
-                    mems[r].append(tuple(int(v) for v in out[ti]))
+            found.append(np.vstack([tr[has], out[has].T]))
             x[tr] = ret
 
-    for r in range(R):
-        mems[r].sort(key=lambda m: (m[3], m[4]))
-    return mems
+    # each read's SMEMs by (qbeg, qend), ties in the order found (a
+    # stable sort, as Python's)
+    m = np.concatenate(found, axis=1)
+    m = m[:, np.lexsort((m[5], m[4], m[0]))]
+    tuples = list(zip(*(row.tolist() for row in m[1:])))
+    ends = np.cumsum(np.bincount(m[0], minlength=R)).tolist()
+    return [tuples[a:b] for a, b in zip([0] + ends[:-1], ends)]

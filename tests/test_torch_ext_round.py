@@ -1,8 +1,9 @@
 """The fused SMEM extension round of the port (``kernels.fmocc.ext_round``
 and ``core.smem._ext_round``) against the reference: the plain round on
 random and edge entries against the JAX package's jitted rounds with the
-Pallas occ kernel (interpret mode on the CPU), the compacted round
-against the uncompacted one, and the bytes a whole SMEM search sends.
+Pallas occ kernel (interpret mode on the CPU), the round of a compact
+(4, n) host buffer against the plain round over the dense arrays it was
+taken from, and the bytes a whole SMEM search sends.
 Every value is an integer, so equality is exact."""
 
 import numpy as np
@@ -101,29 +102,30 @@ def test_compacted_round_equals_padded_round(pair, layout, which):
                           *(torch.from_numpy(np.broadcast_to(a, (T, P))
                                              .astype(np.int32))
                             for a in (k, l, s, c)), layout=layout)
+    # the live entries in row-major order, as the loop holds them
+    host = np.stack([np.broadcast_to(a, (T, P))[live] for a in (k, l, s, c)]
+                    ).astype(np.int32)
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
-        got = tsm._ext_round(tidx, which, k, l, s, c,
-                             make_occ_fn(layout, 256, "cpu"), live)
-    for g, w in zip(got, plain.numpy()):
-        assert g.dtype == np.int64 and g.shape == (T, P)
-        assert np.array_equal(g[live], w[live])
-        assert not g[~live].any()
-    snap = reg.snapshot()
+        got = tsm._ext_round(tidx, which, host,
+                             make_occ_fn(layout, 256, "cpu"))
     n = int(live.sum())
+    assert got.dtype == np.int32 and got.shape == (3, n)
+    for g, w in zip(got, plain.numpy()):
+        assert np.array_equal(g, w[live])
+    snap = reg.snapshot()
     assert (snap["smem_rounds"], snap["smem_h2d_bytes"],
             snap["smem_d2h_bytes"]) == (1, 16 * n, 12 * n)
+    assert snap["smem_live_entries"] == snap["smem_round_slots"] == n
 
 
 def test_round_without_live_entries_sends_nothing(pair):
     _, tidx = pair
     reg = obs.MetricsRegistry()
-    z = np.zeros(5, np.int64)
     with obs.activate(reg):
-        got = tsm._ext_round(tidx, "fwd", z, z, z, z,
-                             make_occ_fn("eta32", 256, "cpu"),
-                             np.zeros(5, bool))
-    assert all(np.array_equal(g, z) for g in got)
+        got = tsm._ext_round(tidx, "fwd", np.zeros((4, 0), np.int32),
+                             make_occ_fn("eta32", 256, "cpu"))
+    assert got.shape == (3, 0)
     snap = reg.snapshot()
     assert snap["smem_rounds"] == 1
     assert snap.get("smem_h2d_bytes", 0) == snap.get("smem_d2h_bytes", 0) == 0
@@ -145,12 +147,12 @@ def world():
 def test_smem_sends_only_live_entries(world, layout, monkeypatch):
     ridx, tidx, reads = world
     lens = np.full(len(reads), reads.shape[1], np.int64)
-    padded = []
+    sent = []
     real = tsm._ext_round
 
-    def counting(idx, which, k, l, s, c, occ_fn, live):
-        padded.append(live.size)
-        return real(idx, which, k, l, s, c, occ_fn, live)
+    def counting(idx, which, host, occ_fn):
+        sent.append(host.shape[1])
+        return real(idx, which, host, occ_fn)
     monkeypatch.setattr(tsm, "_ext_round", counting)
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
@@ -158,8 +160,10 @@ def test_smem_sends_only_live_entries(world, layout, monkeypatch):
                                       occ_fn=make_occ_fn(layout, 256, "cpu"))
     assert got == rsm.collect_smems_batch(ridx, reads, lens, rsm.MemOptions())
     snap = reg.snapshot()
-    assert snap["smem_rounds"] == len(padded)
-    assert 0 < snap["smem_h2d_bytes"] <= 16 * sum(padded) / 10
+    assert snap["smem_rounds"] == len(sent) and min(sent) > 0
+    # the host state holds the live entries alone: every row it sends
+    assert snap["smem_live_entries"] == snap["smem_round_slots"] == sum(sent)
+    assert snap["smem_h2d_bytes"] == 16 * sum(sent)
     assert snap["smem_d2h_bytes"] * 4 == snap["smem_h2d_bytes"] * 3
 
 
