@@ -6,11 +6,13 @@ each contig re-pasted from earlier segments of ``repeat_len`` bases at
 about 1% divergence), as ``repro_torch.data.make_reference`` makes them.
 
 The bundle is the port's on-disk format (``<prefix>.ri.json`` +
-``<prefix>.ri.npz``, format ``repro-fm-index`` version 1), built by the
-reference's frozen copy of the port's builder and written uncompressed.
-It is cached under ``build/bench/index/`` of the checkout, at a fixed path
-named by a hash of the genome's parameters and of the builder's sources,
-so that only the first run of a checkout builds it.
+``<prefix>.ri.npz``, format ``repro-fm-index`` version 1), built by
+``index_build`` (prefix doubling in torch, on the card when there is
+one; byte for byte the reference's ``build_contig_index``) in a process
+of its own, and written uncompressed.  It is cached under
+``build/bench/index/`` of the checkout, at a fixed path named by a hash
+of the genome's parameters and of the builder's sources, so that only
+the first run of a checkout builds it.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ import json
 import os
 import pathlib
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 
 BUILDER = ("reference/bwa_mem/fmindex.py", "reference/bwa_mem/contig.py",
-           "frozen/genome.py")
+           "frozen/genome.py", "frozen/index_build.py")
 
 
 def make_contig(rng, n: int, repeat_frac: float, repeat_len: int
@@ -75,8 +79,12 @@ def write_bundle(prefix: pathlib.Path, idx) -> None:
 
 
 def bundle(genome: dict, cache: pathlib.Path) -> pathlib.Path:
-    """The bundle prefix of ``genome``, built into ``cache`` if absent."""
-    from ..reference.bwa_mem.contig import build_contig_index
+    """The bundle prefix of ``genome``, built into ``cache`` if absent.
+
+    The build runs in a child process, so that neither the caller's
+    device peak (``max_memory_allocated``) nor its ``ru_maxrss`` counts
+    it, and its host and device memory are gone before the caller loads
+    the bundle."""
     final = cache / bundle_key(genome)
     prefix = final / "ref"
     if (final / "ref.ri.json").exists():
@@ -84,6 +92,9 @@ def bundle(genome: dict, cache: pathlib.Path) -> pathlib.Path:
     work = cache / (final.name + ".partial")
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    write_bundle(work / "ref", build_contig_index(make_genome(genome)))
+    subprocess.run([sys.executable, "-m", "bench.frozen.index_build",
+                    json.dumps(genome), str(work / "ref")],
+                   cwd=pathlib.Path(__file__).resolve().parents[2],
+                   stdin=subprocess.DEVNULL, check=True)
     os.replace(work, final)
     return prefix
