@@ -2487,9 +2487,9 @@ def baseline_phase(idx, dev, reads, names, body: list[str], stages: dict,
     fm = idx.device(dev)
     looked_up = []
 
-    def recording(fm, rows):
+    def recording(fm, rows, out=None):
         looked_up.append(rows)
-        return sal_direct(fm, rows)
+        return sal_direct(fm, rows, out)
     sal_mod.sal_direct = recording
     try:
         seeds_from_intervals(idx, mems, opt.mem.max_occ, device=dev)

@@ -48,6 +48,8 @@ I32 = torch.int32
 
 #: Serializes FMIndex.device() lazy builds (see that method).
 _DEVICE_LOCK = threading.Lock()
+#: Serializes the lazy build of the host occ oracle (FMIndex.occ).
+_ORACLE_LOCK = threading.Lock()
 
 
 def revcomp(codes: np.ndarray) -> np.ndarray:
@@ -120,6 +122,9 @@ class FMIndex:
     occ128_counts: np.ndarray
     occ128_packed: np.ndarray
     sa_sampled: np.ndarray
+    # (N+1, 4) int64 host occ oracle, 32 bytes a row: read by ``occ``
+    # alone (the ``baseline`` engine) and built on its first call; a
+    # loaded bundle starts without it
     _occ_prefix: np.ndarray | None = None
     _views: dict = dataclasses.field(default_factory=dict)
 
@@ -128,7 +133,18 @@ class FMIndex:
         """Occ(c, i) = # of c in BWT[0..i]; i may be -1. Oracle path (numpy)."""
         if i < 0:
             return 0
-        return int(self._occ_prefix[i + 1, c])
+        table = self._occ_prefix
+        if table is None:
+            table = self._build_oracle()
+        return int(table[i + 1, c])
+
+    def _build_oracle(self) -> np.ndarray:
+        """Build the occ prefix table once, even when threads sharing the
+        index (memdist's shards) ask for it at once."""
+        with _ORACLE_LOCK:
+            if self._occ_prefix is None:
+                self._occ_prefix = occ_prefix_from_bwt(self.bwt)
+            return self._occ_prefix
 
     def backward_ext(self, k: int, l: int, s: int, c: int):
         """Bi-interval of cX given bi-interval (k,l,s) of X. Returns (k,l,s)."""
@@ -207,7 +223,7 @@ class FMIndex:
 
 
 # Fields persisted by the on-disk index bundle (io.store); the occ prefix
-# oracle and the lazy device views are derived state, rebuilt on load.
+# oracle and the device views are derived state, built on first use.
 PERSIST_ARRAYS = ("seq", "sa", "bwt", "C", "occ32_counts", "occ32_bytes",
                   "occ128_counts", "occ128_packed", "sa_sampled")
 PERSIST_SCALARS = ("n_ref", "N", "primary")
@@ -223,11 +239,10 @@ def occ_prefix_from_bwt(bwt: np.ndarray) -> np.ndarray:
 
 def index_from_arrays(arrays: dict, scalars: dict) -> FMIndex:
     """Reassemble an ``FMIndex`` from its persisted arrays + scalars
-    (see ``PERSIST_ARRAYS``/``PERSIST_SCALARS``), rebuilding derived
-    state."""
+    (see ``PERSIST_ARRAYS``/``PERSIST_SCALARS``); the derived state is
+    built on first use."""
     return FMIndex(**{k: int(scalars[k]) for k in PERSIST_SCALARS},
-                   **{k: np.asarray(arrays[k]) for k in PERSIST_ARRAYS},
-                   _occ_prefix=occ_prefix_from_bwt(np.asarray(arrays["bwt"])))
+                   **{k: np.asarray(arrays[k]) for k in PERSIST_ARRAYS})
 
 
 def index_from_reference(arrays: dict, scalars: dict) -> FMIndex:

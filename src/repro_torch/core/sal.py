@@ -21,14 +21,35 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..kernels import build
 from .contig import contig_edges
 from .fmindex import (FMArrays, I32, SA_SAMPLE, SENTINEL, occ_base_v,
                       occ_opt_v)
 
 
-def sal_direct(fm: FMArrays, rows: torch.Tensor) -> torch.Tensor:
-    """rows (T,) int64 on fm's device -> SA values (T,) int32. One gather."""
-    return fm.sa[rows]
+#: devices on which the SAL gather has launched once outside the gate
+_GATHER_LOADED: set = set()
+
+
+def sal_direct(fm: FMArrays, rows: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """rows (T,) int64 on fm's device -> SA values (T,) int32. One gather,
+    into ``out`` when given."""
+    return torch.gather(fm.sa, 0, rows, out=out)
+
+
+def _sal_timed(fm: FMArrays, rows: torch.Tensor) -> torch.Tensor:
+    """``sal_direct`` on a CUDA device, timed by CUDA events as
+    ``time_device_sal_s`` under the launch gate.  Nothing inside the gate
+    may wait for the device: the output is allocated before it, and the
+    gather's first launch on a device runs outside it, since a lazily
+    loaded kernel's first launch waits for the device."""
+    out = torch.empty(rows.shape, dtype=fm.sa.dtype, device=rows.device)
+    if rows.device not in _GATHER_LOADED:
+        sal_direct(fm, rows[:1], out=out[:1])
+        _GATHER_LOADED.add(rows.device)
+    with obs.device_span("sal", rows.device, build.GATE):
+        return sal_direct(fm, rows, out=out)
 
 
 def sal_compressed(fm: FMArrays, rows: torch.Tensor, occ_eta32: bool = True):
@@ -102,6 +123,8 @@ def seeds_from_intervals(idx, mems_per_read, max_occ: int, *, device,
     rows = torch.from_numpy(np.asarray(rows_all, np.int64)).to(fm.sa.device)
     if compressed:
         vals, _ = sal_compressed(fm, rows, occ_eta32=occ_eta32)
+    elif rows.is_cuda:
+        vals = _sal_timed(fm, rows)
     else:
         vals = sal_direct(fm, rows)
     vals = vals.cpu().numpy().astype(np.int64)

@@ -13,8 +13,10 @@ way bwa hangs ``.bwt``/``.sa``/``.ann`` off the FASTA path.
                    | null                 # null = plain single-seq FMIndex
       }
 
-* ``{prefix}.ri.npz`` — the numpy arrays (``np.savez_compressed``), one
-  entry per name in ``core.fmindex.PERSIST_ARRAYS``: the packed sequence
+* ``{prefix}.ri.npz`` — the numpy arrays, one entry per name in
+  ``core.fmindex.PERSIST_ARRAYS`` (``save_index`` writes them with
+  ``np.savez_compressed``; ``load_index`` reads a plain ``np.savez``
+  archive as well): the packed sequence
   ``seq``, the UNCOMPRESSED suffix array ``sa`` (paper §4.5) plus the
   value-sampled ``sa_sampled``, the BWT bytes, cumulative counts ``C``
   and BOTH occupancy layouts (``occ32_*`` optimized, ``occ128_*``
@@ -22,10 +24,12 @@ way bwa hangs ``.bwt``/``.sa``/``.ann`` off the FASTA path.
   built, so nothing is recomputed except derived caches.
 
 ``load_index(prefix)`` round-trips byte-identically to the in-memory
-build: every persisted array is stored losslessly (dtype-preserving) and
-the only reconstructed state — the host occ-prefix oracle and the lazy
-device view — is rebuilt by the same code the builder uses
-(``occ_prefix_from_bwt``; ``with_contigs`` re-derives ``edges``).
+build: every persisted array is stored losslessly (dtype-preserving),
+``with_contigs`` re-derives ``edges``, and nothing else is computed at
+load.  The host occ-prefix oracle (``FMIndex.occ``, read by the
+``baseline`` engine alone; 32 bytes a BWT row) is built on its first
+use by ``build_index``'s own ``occ_prefix_from_bwt``, and the device view on
+the first ``FMIndex.device`` call.
 A version mismatch or foreign JSON fails loudly rather than
 misinterpreting arrays.
 """
