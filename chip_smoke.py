@@ -55,7 +55,15 @@ Phases (each prints one line, any failure raises and exits non-zero):
    pipeline's launch on a host plan, the plain version's time, the bound,
    the columns a lane (k), a CTA's shared memory, the resident CTAs a SM
    and the tasks on each path; and every galign kernel's registers and
-   spill bytes (ptxas);
+   spill bytes (ptxas).  Then ``diagseed_exact``: mate rescue's
+   anchor-search kernel on every candidate window the rescue sample's plan
+   scans and on synthetic sets (a chunk's 616 windows of 785 bases, ties
+   across and within diagonals, N in mates and reference, a window wider
+   than a CTA's shared memory), held exactly against the plain version and
+   on 64 candidates of each set against the host ``best_diag_seed``; on
+   the chunk-sized set and the real one the kernel's device time, the
+   pipeline's launch, its whole entry (gather, pack, copy, readback), the
+   host's numpy scan, the plain version and the bytes bound;
 5. main path: 2,048 simulated 101-bp reads through ``repro_torch.cli mem
    --device cuda -b 2048`` (one batch) with every kernel launch counter
    set to 0 just before and read just after, and the earlier phases'
@@ -164,9 +172,10 @@ Phases (each prints one line, any failure raises and exits non-zero):
    of 20), values equal.
 Phases 5, 7 and 9-12 each set the launch counters to 0 just before their
 run and read them just after, and fail if a kernel of the path was not
-launched (galign in every one, the rescued mates' in phase 7); phase
+launched (galign in every one, the rescued mates' in phase 7, and one
+diagseed launch for phase 7's one batch); phase
 19 fails if its engine launched any.  The LM path reaches none of the
-four kernels: phases 13-16
+five kernels: phases 13-16
 set the counters to 0 before they start and fail if any kernel was
 launched by the end of any of them.
 
@@ -223,8 +232,8 @@ from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
 from repro_torch.core.contig import contig_edges  # noqa: E402
 from repro_torch import pe  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
-                                       PipelineOptions, galign_batch_fn,
-                                       run_se_batched)
+                                       PipelineOptions, diagseed_batch_fn,
+                                       galign_batch_fn, run_se_batched)
 from repro_torch.core.sam import global_align_cigar  # noqa: E402
 from repro_torch.core import sal as sal_mod  # noqa: E402
 from repro_torch.core.sal import (sal_compressed, sal_direct,  # noqa: E402
@@ -247,6 +256,9 @@ from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
 from repro_torch.kernels.fmocc.ops import (DIRECTIONS, LAYOUTS,  # noqa: E402
                                            ext_round)
 from repro_torch.kernels.fmocc.ref import ext_round_ref  # noqa: E402
+from repro_torch.kernels.diagseed import ops as diagseed_ops  # noqa: E402
+from repro_torch.kernels.diagseed.ops import diagseed_call  # noqa: E402
+from repro_torch.kernels.diagseed.ref import diagseed_ref  # noqa: E402
 from repro_torch.kernels import galign as galign_pkg  # noqa: E402
 from repro_torch.kernels.galign import ops as galign_ops  # noqa: E402
 from repro_torch.kernels.galign.ops import galign_call  # noqa: E402
@@ -347,6 +359,10 @@ BSW_OPS_PER_CELL = 20
 GALIGN_OPS_PER_CELL = 11
 #: tasks of each galign set also held against the host global_align_cigar
 GALIGN_HOST_SAMPLE = 32
+#: candidates of each diagseed set also held against best_diag_seed
+DIAGSEED_HOST_SAMPLE = 64
+#: mate rescue's anchor seed length (pe.PEOptions.rescue_min_seed)
+DIAGSEED_MIN = 10
 SECTOR = 32                # DRAM access granularity in bytes
 
 KERNELS = {
@@ -359,6 +375,9 @@ KERNELS = {
     # host code in both packages; no Pallas counterpart
     "galign": ("src/repro_torch/kernels/csrc/galign.cu",
                "src/repro/core/sam.py:18"),
+    # host code in both packages; no Pallas counterpart
+    "diagseed": ("src/repro_torch/kernels/csrc/diagseed.cu",
+                 "src/repro/pe/rescue.py:49"),
 }
 
 
@@ -783,19 +802,29 @@ def bsw_bound_ms(blocks: list, cells: int) -> tuple[float, str]:
 def rescue_blocks(idx, reads1, reads2, dev):
     """The PE path's mate rescue on (reads1, reads2): both ends through
     ``run_se_batched`` on ``dev``, the insert-size estimate, the rescue
-    plan, ``run_rescues_batched`` with a ``batch_fn`` that records every
-    packed block before it launches the kernel, and ``merge_rescues``.
-    Returns (the blocks, the rescue's stats, the PairStat[4], the galign
-    tasks of both ends' finalize and of the rescued mates')."""
+    plan with the pipeline's batched ``seed_fn`` (its candidates recorded
+    before it launches the kernel), ``run_rescues_batched`` with a
+    ``batch_fn`` that records every packed block before it launches the
+    kernel, and ``merge_rescues``.  Returns (the blocks, the rescue's
+    stats, the PairStat[4], the galign tasks of both ends' finalize and of
+    the rescued mates', the seed_fn's candidates)."""
     opt = PipelineOptions(device=str(dev))
     n = len(reads1)
-    calls = []
+    calls, seed_calls = [], []
     with recording_galign(calls):
         res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt)
     peopt = pe.PEOptions()
     pes = pe.estimate_pestat(res[:n], res[n:], idx, max_ins=peopt.max_ins)
+    seed_fn = diagseed_batch_fn(opt)
+
+    def record_seeds(queries, S, wlos, whis, min_len):
+        seed_calls.append((list(queries), list(wlos), list(whis), min_len))
+        return seed_fn(queries, S, wlos, whis, min_len)
     tasks = pe.plan_rescues((res[:n], res[n:]), (reads1, reads2), pes, idx,
-                            peopt)
+                            peopt, seed_fn=record_seeds)
+    if len(seed_calls) != 1:
+        raise AssertionError(f"the rescue plan made {len(seed_calls)} "
+                             f"seed_fn calls, not one")
     blocks = []
     outs, stats = pe.run_rescues_batched(
         tasks, idx, opt.bsw, batch_fn=recording_batch_fn(blocks, dev),
@@ -804,7 +833,7 @@ def rescue_blocks(idx, reads1, reads2, dev):
         pe.merge_rescues((res[:n], res[n:]), tasks, outs, idx, opt.bsw,
                          opt.mem.min_seed_len, peopt,
                          align=galign_batch_fn(opt))
-    return blocks, stats, pes, calls
+    return blocks, stats, pes, calls, seed_calls[0]
 
 
 def check_rescue_bsw(blocks: list, dev) -> dict:
@@ -1050,6 +1079,169 @@ def finalize_split(snap: dict, what: str) -> None:
           cigar_apply_s=f"{get('time_finalize.cigar_s'):.3f}",
           sam_format_s=f"{get('time_sam_format_s'):.3f}",
           galign_tasks=int(snap.get("galign_tasks", 0)))
+
+
+def synthetic_diagseed_sets() -> dict:
+    """name -> (S, queries, wlos, whis): each its own reference of codes
+    0..3.
+
+    * ``chunk``: 616 windows of 785 bases with 151-base mates, as many as
+      a 3,312-pair chunk of the benchmark's PE cells scans; a mate is a
+      copy of 151 bases inside its window with ~2% substitutions (one in
+      five unrelated);
+    * ``ties``: equal longest runs on two diagonals, the larger one's
+      ending first, and twice on one diagonal;
+    * ``ns``: N (code 4) in the mates and in the reference, the mates'
+      own Ns copied into the windows, and an all-N mate on an all-N window;
+    * ``wide``: a window wider than a CTA's shared memory (240,000 bases,
+      read from device memory) with its best run near its far end, a
+      20,000-base window, and ordinary ones."""
+    rng = np.random.default_rng(29)
+    r = lambda k: rng.integers(0, 4, k).astype(np.uint8)   # noqa: E731
+    sets = {}
+    S = r(1_000_000)
+    qs, lo = [], rng.integers(0, len(S) - 785, 616)
+    for k, a in enumerate(lo):
+        at = int(a) + int(rng.integers(0, 785 - 151))
+        q = S[at:at + 151].copy()
+        q = np.where(rng.random(151) < 0.02, r(151), q).astype(np.uint8)
+        qs.append(q if k % 5 else r(151))
+    sets["chunk"] = (S, qs, lo.tolist(), (lo + 785).tolist())
+    S, q = r(5_000), r(120)
+
+    def plant(lo, d, jb, je):
+        S[lo + d + jb:lo + d + je] = q[jb:je]
+        S[lo + d + jb - 1] = (q[jb - 1] + 1) % 4
+        S[lo + d + je] = (q[je] + 1) % 4
+    plant(1_000, 40, 70, 100)
+    plant(1_000, 300, 20, 50)
+    plant(3_000, 17, 5, 30)
+    plant(3_000, 17, 60, 85)
+    sets["ties"] = (S, [q, q], [1_000, 3_000], [1_600, 3_500])
+    S = r(20_000)
+    S[rng.random(len(S)) < 0.02] = 4
+    qs, wl = [], []
+    for k in range(32):
+        q = r(151)
+        q[rng.random(151) < 0.03] = 4
+        at = 500 * k + int(rng.integers(0, 300))
+        S[at:at + 151] = q
+        qs.append(q)
+        wl.append(500 * k)
+    S[19_000:19_100] = 4
+    sets["ns"] = (S, qs + [np.full(40, 4, np.uint8)], wl + [19_000],
+                  [w + 450 for w in wl] + [19_100])
+    S, q = r(400_000), r(151)
+    S[100_000 + 239_000 + 30:100_000 + 239_000 + 140] = q[30:140]
+    S[10_000 + 19_000 + 10:10_000 + 19_000 + 60] = q[10:60]
+    sets["wide"] = (S, [q, q, q, r(151)],
+                    [100_000, 10_000, 50_000, 60_000],
+                    [340_000, 30_000, 50_785, 60_900])
+    return sets
+
+
+def diagseed_cells(queries, wlos, whis) -> int:
+    """Byte compares of the reference's scan: sum over each window's
+    diagonals d of min(L, n - d)."""
+    total = 0
+    for q, lo, hi in zip(queries, wlos, whis):
+        n, L = hi - lo, len(q)
+        d = np.arange(n)
+        total += int(np.minimum(L, n - d).sum())
+    return total
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn()`` in ms, after one warmup call
+    (``fn`` ends in a host read, so the device work is inside)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def check_diagseed(sets: dict, dev) -> dict:
+    """Every candidate set held exactly against the plain version on the
+    same card tensors, and each set's first ``DIAGSEED_HOST_SAMPLE``
+    candidates against the host ``best_diag_seed`` through the pipeline's
+    entry; then the chunk-sized set and the real candidates timed: the
+    kernel's device time (profiler, mean of 20 launches), the pipeline's
+    launch on host-sized shared memory, the entry (gather, pack, copy,
+    launch, readback), the host's numpy scan window by window, the plain
+    version, and the bytes bound (windows and mates read once over the
+    HBM rate)."""
+    err, n_cands, n_host, n_global = 0, 0, 0, 0
+    for name, (S, queries, wlos, whis) in sets.items():
+        arrays = diagseed_ops.pack(queries, S, wlos, whis)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = diagseed_call(*args, DIAGSEED_MIN)
+        want = diagseed_ref(*args, DIAGSEED_MIN)
+        err = max(err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            bad = int(torch.nonzero((got != want).any(1))[0, 0])
+            raise AssertionError(
+                f"diagseed differs from its plain version on set {name}, "
+                f"candidate {bad}: {got[bad].tolist()} != "
+                f"{want[bad].tolist()}")
+        k = DIAGSEED_HOST_SAMPLE
+        host = pe.host_diag_seeds(queries[:k], S, wlos[:k], whis[:k],
+                                  DIAGSEED_MIN)
+        entry = diagseed_batch_fn(PipelineOptions(device=str(dev)))(
+            queries[:k], S, wlos[:k], whis[:k], DIAGSEED_MIN)
+        if not np.array_equal(host, entry):
+            raise AssertionError(f"diagseed differs from best_diag_seed on "
+                                 f"set {name}")
+        n_host += len(host)
+        n_cands += len(queries)
+        n_global += int((diagseed_ops.stage_bytes(arrays[2], arrays[5])
+                         > diagseed_ops.SMEM_CTA_MAX).sum())
+    if not n_global:
+        raise AssertionError("no diagseed candidate took the device-memory "
+                             "path")
+    phase("diagseed_exact", sets=",".join(f"{k}:{len(v[1])}" for k, v in
+                                          sets.items()),
+          candidates=n_cands, host_checked=n_host, device_memory_path=n_global,
+          max_abs_err=err)
+    timed = {}
+    for name in ("chunk", "real"):
+        S, queries, wlos, whis = sets[name]
+        arrays = diagseed_ops.pack(queries, S, wlos, whis)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        smem = diagseed_ops.smem_bytes(arrays[2], arrays[5])
+        nbytes = int(arrays[0].size + arrays[3].size)
+        fn = diagseed_batch_fn(PipelineOptions(device=str(dev)))
+        t = dict(candidates=len(queries), window_bytes=int(arrays[0].size),
+                 mate_bytes=int(arrays[3].size),
+                 compares=diagseed_cells(queries, wlos, whis), smem=smem,
+                 ms=kernel_ms(lambda: diagseed_call(*args, DIAGSEED_MIN),
+                              "diagseed_kernel", 1),
+                 launch_ms=cuda_ms(lambda: diagseed_ops.diagseed_launch(
+                     *args, DIAGSEED_MIN, smem)),
+                 entry_ms=host_ms(lambda: fn(queries, S, wlos, whis,
+                                             DIAGSEED_MIN)),
+                 host_ms=host_ms(lambda: pe.host_diag_seeds(
+                     queries, S, wlos, whis, DIAGSEED_MIN), reps=3),
+                 plain_ms=cuda_ms(lambda: diagseed_ref(*args, DIAGSEED_MIN),
+                                  reps=3),
+                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        timed[name] = t
+        phase("diagseed", set=name, candidates=t["candidates"],
+              window_bytes=t["window_bytes"], mate_bytes=t["mate_bytes"],
+              compares=t["compares"], smem_cta=smem,
+              kernel_ms=f"{t['ms']:.4f}", launch_ms=f"{t['launch_ms']:.4f}",
+              entry_ms=f"{t['entry_ms']:.3f}",
+              host_numpy_ms=f"{t['host_ms']:.2f}",
+              plain_ms=f"{t['plain_ms']:.3f}",
+              bound_ms=f"{t['bound_ms']:.6f}", bound_by="bytes")
+    phase("diagseed_build", ptxas=kernel_regs("diagseed_kernel"),
+          launches_phase4=kernels.launch_counts()["diagseed"])
+    c = timed["chunk"]
+    return {"diagseed": dict(max_abs_err=err, ms=c["ms"],
+                             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                             bound_by="bytes")}
 
 
 # ---------------------------------------------------------------------
@@ -2585,7 +2777,8 @@ def main() -> int:
         results.update(check_bsw(blocks, dev))
         p1, p2, _ = simulate_pairs(ref, N_RESCUE_PAIRS, READ_LEN, seed=11,
                                    **PAIR_SIM)
-        rblocks, rstats, pes_r, gcalls = rescue_blocks(idx, p1, p2, dev)
+        rblocks, rstats, pes_r, gcalls, seeds_r = rescue_blocks(idx, p1, p2,
+                                                                dev)
         phase("rescue_sample", pairs=N_RESCUE_PAIRS,
               rescue_tasks=rstats["rescue_tasks"],
               rescue_bsw=rstats["rescue_bsw"], fr_failed=pes_r[1].failed,
@@ -2606,6 +2799,12 @@ def main() -> int:
             {"real_se": se_calls[0], "pe_ends": gcalls[0],
              "rescued": gcalls[1], **synthetic_galign_tasks()}, dev))
         del se_calls, gcalls
+        # mate rescue's anchor search: the rescue sample's real candidates
+        # and the synthetic sets
+        results.update(check_diagseed(
+            {"real": (idx.seq, *seeds_r[:3]), **synthetic_diagseed_sets()},
+            dev))
+        del seeds_r
 
         # 5. main path through the CLI
         fq = tmp / "reads.fq"
@@ -2676,6 +2875,10 @@ def main() -> int:
         for k in ("bsw", "galign"):
             if pe_run["rescue_launches"][k] <= 0:
                 raise AssertionError(f"mate rescue launched no {k} kernel")
+        if launches_pe["diagseed"] != 1:
+            raise AssertionError(f"the PE batch's rescue plan launched "
+                                 f"diagseed {launches_pe['diagseed']} times, "
+                                 f"not once")
 
         # 8. the card's PE SAM against the CPU path's on the first pairs
         cpu_vs_card_pe(fa, pe_run["fq1"], pe_run["fq2"])

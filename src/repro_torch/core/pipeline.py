@@ -517,6 +517,13 @@ def galign_batch_fn(opt: PipelineOptions):
     return functools.partial(global_align_batch, device=opt.device)
 
 
+def diagseed_batch_fn(opt: PipelineOptions):
+    """Mate rescue's anchor search, every candidate window of a batch in
+    one call (``kernels.diagseed.diag_seed_batch``) on ``opt.device``."""
+    from ..kernels.diagseed import diag_seed_batch   # kernels import core
+    return functools.partial(diag_seed_batch, device=opt.device)
+
+
 def occ_fn_for(idx: FMIndex, opt: PipelineOptions):
     """SMEM occ callable on ``opt.device``: the occ-layout configuration
     the engine's sweep attached to the index (``kernels.engine``)."""

@@ -5,6 +5,8 @@
 * ``bsw``   — banded Smith-Waterman seed extension (ksw_extend2);
 * ``galign`` — finalize's banded global alignment with traceback (the
   score and CIGAR of every emitted region);
+* ``diagseed`` — mate rescue's anchor search (the longest exact diagonal
+  match of a mate in each rescue window);
 * ``engine`` — the "cuda" engine: the occ-layout sweep and the SE driver.
 
 The CUDA sources live in ``csrc/`` and are built at first use into one
@@ -15,6 +17,7 @@ a CUDA device; any other device raises.
 
 from .build import LAUNCH_LOCK
 from .bsw import ops as _bsw_ops
+from .diagseed import ops as _diagseed_ops
 from .fmocc import ops as _fmocc_ops
 from .galign import ops as _galign_ops
 
@@ -23,12 +26,12 @@ def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launch_counts``, by kernel."""
     with LAUNCH_LOCK:
         return {**_fmocc_ops.LAUNCHES, **_bsw_ops.LAUNCHES,
-                **_galign_ops.LAUNCHES}
+                **_galign_ops.LAUNCHES, **_diagseed_ops.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     with LAUNCH_LOCK:
         for d in (_fmocc_ops.LAUNCHES, _bsw_ops.LAUNCHES,
-                  _galign_ops.LAUNCHES):
+                  _galign_ops.LAUNCHES, _diagseed_ops.LAUNCHES):
             for k in d:
                 d[k] = 0

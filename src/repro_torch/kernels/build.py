@@ -40,11 +40,13 @@ SIGNATURES = {
     "galign": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "galign_occupancy": (_I, _I, _P),
+    "diagseed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "gate_alloc": (_P, _P),
     "gate_wait": (_P, _P, ctypes.c_uint),
     "fmocc_load": (),
     "bsw_load": (),
     "galign_load": (),
+    "diagseed_load": (),
 }
 #: entry points that load a source's kernels (LaunchGate calls them all)
 LOADERS = tuple(name for name in SIGNATURES if name.endswith("_load"))

@@ -5,8 +5,9 @@ Stages:
 
 1. insert-size estimation from high-confidence unique pairs (pestat.py);
 2. mate rescue — insert-window banded SW for unmapped/inconsistent mates,
-   scalar per-pair baseline vs. length-sorted inter-task batches through
-   the pipeline's BSW executor, so through the bsw kernel on the
+   scalar per-pair baseline vs. every window's anchor search in one
+   diagseed call and length-sorted inter-task batches through the
+   pipeline's BSW executor, so through the diagseed and bsw kernels on the
    pipeline's device, the accepted mates finalized in one galign call
    (rescue.py);
 3. pair scoring/selection and pair-aware SAM emission with proper-pair
@@ -17,12 +18,13 @@ The entry points are ``run_pe_batched`` and ``run_pe_baseline`` in
 """
 
 from .. import obs
-from ..core.pipeline import bsw_batch_fn, galign_batch_fn, host_align
+from ..core.pipeline import (bsw_batch_fn, diagseed_batch_fn,
+                             galign_batch_fn, host_align)
 from .pestat import (PairStat, estimate_pestat, infer_dir,  # noqa: F401
                      pestat_from_jsonable, pestat_to_jsonable)
 from .rescue import (PEOptions, RescueTask, best_diag_seed,  # noqa: F401
-                     merge_rescues, plan_rescues, rescue_window,
-                     run_rescues_batched, run_rescues_scalar)
+                     host_diag_seeds, merge_rescues, plan_rescues,
+                     rescue_window, run_rescues_batched, run_rescues_scalar)
 from .pairing import (blend_mapq, emit_pair, pair_score,  # noqa: F401
                       raw_mapq, select_pair)
 
@@ -49,17 +51,22 @@ def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
         else:
             pes = estimate_pestat(res1, res2, idx, max_ins=peopt.max_ins)
     with obs.span("pe_rescue"):
-        tasks = plan_rescues((res1, res2), (reads1, reads2), pes, idx, peopt)
-        if batched:
-            outs, rstats = run_rescues_batched(tasks, idx, p,
-                                               batch_fn=bsw_batch_fn(opt),
-                                               block=opt.bsw_block,
-                                               sort=opt.bsw_sort)
-        else:
-            outs, rstats = run_rescues_scalar(tasks, idx, p)
-        n_rescued = merge_rescues(
-            (res1, res2), tasks, outs, idx, p, opt.mem.min_seed_len, peopt,
-            align=galign_batch_fn(opt) if batched else host_align)
+        with obs.span("pe_rescue.plan"):
+            tasks = plan_rescues(
+                (res1, res2), (reads1, reads2), pes, idx, peopt,
+                seed_fn=diagseed_batch_fn(opt) if batched
+                else host_diag_seeds)
+        with obs.span("pe_rescue.extend"):
+            if batched:
+                outs, rstats = run_rescues_batched(
+                    tasks, idx, p, batch_fn=bsw_batch_fn(opt),
+                    block=opt.bsw_block, sort=opt.bsw_sort)
+            else:
+                outs, rstats = run_rescues_scalar(tasks, idx, p)
+        with obs.span("pe_rescue.merge"):
+            n_rescued = merge_rescues(
+                (res1, res2), tasks, outs, idx, p, opt.mem.min_seed_len,
+                peopt, align=galign_batch_fn(opt) if batched else host_align)
     lines: list[str] = []
     n_proper = 0
     with obs.span("pe_pair"):

@@ -20,7 +20,10 @@ the rescue window, and the anchor seed is extended left/right exactly
 like a one-seed chain through ``chain2aln``, so rescue output obeys the
 same extension spec as the main pipeline.
 
-A copy of ``repro.pe.rescue``.
+A copy of ``repro.pe.rescue``, with ``plan_rescues`` in three passes
+(the candidate windows, one anchor-seed search over all of them, the
+tasks), so that the batched path scans a batch's windows in one
+``diagseed`` launch; the tasks are the reference's.
 """
 
 from __future__ import annotations
@@ -123,8 +126,23 @@ class PEOptions:
     frozen_pes: tuple | None = None
 
 
+def host_diag_seeds(queries, S: np.ndarray, wlos, whis,
+                    min_len: int) -> np.ndarray:
+    """``best_diag_seed`` candidate by candidate on the host, the original
+    organisation: (C, 3) int64 rows (d, j_end, len), len 0 where no run
+    reaches ``min_len``."""
+    out = np.zeros((len(queries), 3), np.int64)
+    for k, (q, wlo, whi) in enumerate(zip(queries, wlos, whis)):
+        seed = best_diag_seed(q, S, wlo, whi, min_len)
+        if seed is not None:
+            rb, qb, ln = seed
+            out[k] = (rb - wlo - qb, qb + ln - 1, ln)
+    return out
+
+
 def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
-                 idx, peopt: PEOptions) -> list[RescueTask]:
+                 idx, peopt: PEOptions, *,
+                 seed_fn=host_diag_seeds) -> list[RescueTask]:
     """mem_sam_pe's rescue fan-out, planned from the PRE-rescue state.
 
     For each end's strong alignments (score within pen_unpaired of the
@@ -133,9 +151,16 @@ def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
     snapshot (unlike bwa's accumulate-as-you-go) makes the task list — and
     therefore the output — independent of execution order, which is what
     lets the scalar and batched drivers be byte-identical.
+
+    Three passes: the candidate windows of every pair, end, anchor and
+    orientation; one ``seed_fn(queries, S, wlos, whis, min_len)`` call for
+    all of them, (C, 3) rows (d, j_end, len) of each window's anchor seed
+    (``host_diag_seeds``, window by window on the host, or the batched
+    ``core.pipeline.diagseed_batch_fn``); the tasks, in candidate order.
     """
     S, l_pac = idx.seq, idx.n_ref
-    tasks: list[RescueTask] = []
+    cands: list[tuple] = []      # (pid, other end, r, wlo, whi)
+    queries: list[np.ndarray] = []
     n_pairs = len(results[0])
     for pid in range(n_pairs):
         regs = (results[0][pid], results[1][pid])
@@ -167,14 +192,22 @@ def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
                     win = rescue_window(idx, a.rb, r, pes[r], len(mate))
                     if win is None:
                         continue
-                    seed = best_diag_seed(mate, S, win[0], win[1],
-                                          peopt.rescue_min_seed)
-                    if seed is None:
-                        continue
-                    obs.observe("rescue_window_bp", win[1] - win[0])
-                    tasks.append(RescueTask(pair_id=pid, end=other, r=r,
-                                            chain=Chain(seeds=[seed]),
-                                            query=mate))
+                    cands.append((pid, other, r, win[0], win[1]))
+                    queries.append(mate)
+    obs.count("rescue_windows", len(cands))
+    min_len = peopt.rescue_min_seed
+    seeds = np.asarray(seed_fn(queries, S, [c[3] for c in cands],
+                               [c[4] for c in cands], min_len))
+    tasks: list[RescueTask] = []
+    for (pid, other, r, wlo, whi), mate, (d, j_end, ln) in zip(
+            cands, queries, seeds.tolist()):
+        if ln < min_len:
+            continue
+        qb = j_end - ln + 1
+        obs.observe("rescue_window_bp", whi - wlo)
+        tasks.append(RescueTask(pair_id=pid, end=other, r=r,
+                                chain=Chain(seeds=[(wlo + d + qb, qb, ln)]),
+                                query=mate))
     obs.count("rescue_planned", len(tasks))
     return tasks
 

@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as robs
 from repro import pe as rpe
 from repro.api import Aligner as RAligner
 from repro.core import pipeline as rpipeline
 from repro.core.contig import build_contig_index as r_build_contig_index
 from repro.options import AlignOptions as RAlignOptions
-from repro_torch import pe
+from repro_torch import obs, pe
 from repro_torch.api import Aligner
 from repro_torch.core import pipeline
 from repro_torch.core.contig import build_contig_index
@@ -99,6 +100,36 @@ def test_rescue_matches_reference(world, se_results):
     assert n == rn > 0
     assert fields(t1) == fields(q1) and fields(t2) == fields(q2)
     assert any(a.rescued for alns in t2 for a in alns)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_plan_rescues_seed_fn_matches_reference(world, se_results, batched):
+    """The plan with the default host ``seed_fn`` and with the batched one
+    (``diagseed_batch_fn``, its plain version on the CPU): the reference's
+    tasks, seeds and queries, and its ``rescue_window_bp`` histogram."""
+    _, r1, r2, idx, ridx = world
+    t1, t2, q1, q2 = se_results
+    pes = pe.estimate_pestat(t1, t2, idx)
+    rpes = rpe.estimate_pestat(q1, q2, ridx)
+    kw = dict(seed_fn=pipeline.diagseed_batch_fn(
+        pipeline.PipelineOptions(device="cpu"))) if batched else {}
+    reg, rreg = obs.MetricsRegistry(), robs.MetricsRegistry()
+    with obs.activate(reg):
+        tasks = pe.plan_rescues((t1, t2), (r1, r2), pes, idx, pe.PEOptions(),
+                                **kw)
+    with robs.activate(rreg):
+        rtasks = rpe.plan_rescues((q1, q2), (r1, r2), rpes, ridx,
+                                  rpe.PEOptions())
+    assert tasks
+    assert ([(t.pair_id, t.end, t.r, t.chain.seeds) for t in tasks]
+            == [(t.pair_id, t.end, t.r, t.chain.seeds) for t in rtasks])
+    assert all(np.array_equal(a.query, b.query)
+               for a, b in zip(tasks, rtasks))
+    snap, rsnap = reg.snapshot(), rreg.snapshot()
+    assert vars(snap["rescue_window_bp"]) == vars(rsnap["rescue_window_bp"])
+    assert snap["rescue_planned"] == rsnap["rescue_planned"] == len(tasks)
+    # every candidate window is scanned, and some hold no anchor seed
+    assert snap["rescue_windows"] > len(tasks)
 
 
 def test_rescue_without_tasks_dispatches_nothing(world):
