@@ -190,6 +190,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -232,8 +233,7 @@ from repro_torch.core.chain import chain_seeds, filter_chains  # noqa: E402
 from repro_torch.core.contig import contig_edges  # noqa: E402
 from repro_torch import pe  # noqa: E402
 from repro_torch.core.pipeline import (BatchedBSWExecutor,  # noqa: E402
-                                       PipelineOptions, diagseed_batch_fn,
-                                       galign_batch_fn, run_se_batched)
+                                       PipelineOptions, run_se_batched)
 from repro_torch.core.sam import global_align_cigar  # noqa: E402
 from repro_torch.core import sal as sal_mod  # noqa: E402
 from repro_torch.core.sal import (sal_compressed, sal_direct,  # noqa: E402
@@ -246,8 +246,9 @@ from repro_torch.data import (decode, make_reference,  # noqa: E402
 from repro_torch.io.store import load_index  # noqa: E402
 from repro_torch.io.stream import _pack_pe, open_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import bsw as bsw_pkg  # noqa: E402
 from repro_torch.kernels.bsw.ops import (bsw_call,  # noqa: E402
-                                          bsw_extend_kernel, launch_geometry)
+                                          launch_geometry)
 from repro_torch.kernels.bsw.ref import bsw_ref  # noqa: E402
 from repro_torch.kernels.engine import (SWEEP_CANDIDATES,  # noqa: E402
                                         SWEEP_LAUNCHES, SWEEP_REPS,
@@ -593,7 +594,7 @@ def device_stages(idx, reads, dev):
     the executor dispatches)."""
     opt = PipelineOptions(device=str(dev))
     lens = np.full(len(reads), reads.shape[1], np.int64)
-    occ_fn = attach_occ_config(idx, dev).occ_fn
+    occ = attach_occ_config(idx, dev)
     rounds = []
 
     def recording(fm, which, k, l, s, c, **kw):
@@ -604,7 +605,7 @@ def device_stages(idx, reads, dev):
         return ext_round(fm, which, k, l, s, c, **kw)
     smem_mod.ext_round = recording
     try:
-        mems = collect_smems_batch(idx, reads, lens, opt.mem, occ_fn=occ_fn)
+        mems = collect_smems_batch(idx, reads, lens, opt.mem, occ=occ)
     finally:
         smem_mod.ext_round = ext_round
     seeds, _ = seeds_from_intervals(idx, mems, opt.mem.max_occ, device=dev)
@@ -617,21 +618,30 @@ def device_stages(idx, reads, dev):
         jobs.extend(((r, ci), ch, reads[r], idx)
                     for ci, ch in enumerate(chains))
     blocks = []
-    BatchedBSWExecutor(opt.bsw, batch_fn=recording_batch_fn(blocks, dev),
-                       block=opt.bsw_block).plan_and_run(jobs)
+    with recording_bsw(blocks):
+        BatchedBSWExecutor(opt.bsw, device=dev,
+                           block=opt.bsw_block).plan_and_run(jobs)
     if len(blocks) < BSW_REAL_BLOCKS:
         raise AssertionError(f"only {len(blocks)} BSW blocks in the sample")
     return rounds, blocks
 
 
-def recording_batch_fn(blocks: list, dev):
-    """The executor's ``batch_fn`` on ``dev``, appending each block's
-    packed arrays to ``blocks`` before it launches the kernel."""
-    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None):
+@contextlib.contextmanager
+def recording_bsw(blocks: list):
+    """Every call of the bsw entry that the BSW executor looks up: each
+    block's packed arrays appended to ``blocks`` before it launches the
+    kernel."""
+    real = bsw_pkg.bsw_extend_kernel
+
+    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None, *,
+               device):
         blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax, tmax))
-        return bsw_extend_kernel(queries, targets, h0s, p, ws, qmax, tmax,
-                                 device=dev)
-    return record
+        return real(queries, targets, h0s, p, ws, qmax, tmax, device=device)
+    bsw_pkg.bsw_extend_kernel = record
+    try:
+        yield blocks
+    finally:
+        bsw_pkg.bsw_extend_kernel = real
 
 
 def related(rng, qlens, tlens):
@@ -802,20 +812,22 @@ def bsw_bound_ms(blocks: list, cells: int) -> tuple[float, str]:
 def rescue_blocks(idx, reads1, reads2, dev):
     """The PE path's mate rescue on (reads1, reads2): both ends through
     ``run_se_batched`` on ``dev``, the insert-size estimate, the rescue
-    plan with the pipeline's batched ``seed_fn`` (its candidates recorded
-    before it launches the kernel), ``run_rescues_batched`` with a
-    ``batch_fn`` that records every packed block before it launches the
-    kernel, and ``merge_rescues``.  Returns (the blocks, the rescue's
-    stats, the PairStat[4], the galign tasks of both ends' finalize and of
-    the rescued mates', the seed_fn's candidates)."""
+    plan with the batched ``seed_fn`` (its candidates recorded before it
+    launches the kernel), ``run_rescues_batched`` with every packed block
+    recorded before it launches the kernel, and ``merge_rescues``.
+    Returns (the blocks, the rescue's stats, the PairStat[4], the galign
+    tasks of both ends' finalize and of the rescued mates', the seed_fn's
+    candidates)."""
     opt = PipelineOptions(device=str(dev))
     n = len(reads1)
     calls, seed_calls = [], []
     with recording_galign(calls):
-        res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt)
+        res, _ = run_se_batched(idx, np.concatenate([reads1, reads2]), opt,
+                                occ=attach_occ_config(idx, dev))
     peopt = pe.PEOptions()
     pes = pe.estimate_pestat(res[:n], res[n:], idx, max_ins=peopt.max_ins)
-    seed_fn = diagseed_batch_fn(opt)
+    seed_fn = functools.partial(diagseed_ops.diag_seed_batch,
+                                device=opt.device)
 
     def record_seeds(queries, S, wlos, whis, min_len):
         seed_calls.append((list(queries), list(wlos), list(whis), min_len))
@@ -826,13 +838,15 @@ def rescue_blocks(idx, reads1, reads2, dev):
         raise AssertionError(f"the rescue plan made {len(seed_calls)} "
                              f"seed_fn calls, not one")
     blocks = []
-    outs, stats = pe.run_rescues_batched(
-        tasks, idx, opt.bsw, batch_fn=recording_batch_fn(blocks, dev),
-        block=opt.bsw_block)
+    with recording_bsw(blocks):
+        outs, stats = pe.run_rescues_batched(tasks, idx, opt.bsw, device=dev,
+                                             block=opt.bsw_block)
     with recording_galign(calls):
         pe.merge_rescues((res[:n], res[n:]), tasks, outs, idx, opt.bsw,
                          opt.mem.min_seed_len, peopt,
-                         align=galign_batch_fn(opt))
+                         align=functools.partial(
+                             galign_pkg.global_align_batch,
+                             device=opt.device))
     return blocks, stats, pes, calls, seed_calls[0]
 
 
@@ -882,9 +896,9 @@ def check_rescue_bsw(blocks: list, dev) -> dict:
 
 @contextlib.contextmanager
 def recording_galign(calls: list):
-    """Every call of the galign entry that the pipeline's
-    ``galign_batch_fn`` looks up: its tasks appended to ``calls`` before
-    it launches the kernel."""
+    """Every call of the galign entry that the pipeline looks up on
+    ``kernels.galign``: its tasks appended to ``calls`` before it
+    launches the kernel."""
     real = galign_pkg.global_align_batch
 
     def record(tasks, p, *, device):
@@ -1189,8 +1203,9 @@ def check_diagseed(sets: dict, dev) -> dict:
         k = DIAGSEED_HOST_SAMPLE
         host = pe.host_diag_seeds(queries[:k], S, wlos[:k], whis[:k],
                                   DIAGSEED_MIN)
-        entry = diagseed_batch_fn(PipelineOptions(device=str(dev)))(
-            queries[:k], S, wlos[:k], whis[:k], DIAGSEED_MIN)
+        entry = diagseed_ops.diag_seed_batch(
+            queries[:k], S, wlos[:k], whis[:k], DIAGSEED_MIN,
+            device=str(dev))
         if not np.array_equal(host, entry):
             raise AssertionError(f"diagseed differs from best_diag_seed on "
                                  f"set {name}")
@@ -1212,7 +1227,8 @@ def check_diagseed(sets: dict, dev) -> dict:
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         smem = diagseed_ops.smem_bytes(arrays[2], arrays[5])
         nbytes = int(arrays[0].size + arrays[3].size)
-        fn = diagseed_batch_fn(PipelineOptions(device=str(dev)))
+        fn = functools.partial(diagseed_ops.diag_seed_batch,
+                               device=str(dev))
         t = dict(candidates=len(queries), window_bytes=int(arrays[0].size),
                  mate_bytes=int(arrays[3].size),
                  compares=diagseed_cells(queries, wlos, whis), smem=smem,
@@ -1307,7 +1323,7 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     """Phase 7: ``N_PAIRS`` simulated pairs through ``repro_torch.cli mem
     --device cuda`` as one batch, the launch counters set to 0 just
     before and read just after; the launches inside the mate-rescue stage
-    are read apart around ``run_rescues_batched``."""
+    are read apart around ``pe.rescue.run_rescues_batched``."""
     r1, r2, truth = simulate_pairs(ref, N_PAIRS, READ_LEN, seed=13,
                                    **PAIR_SIM)
     fq1, fq2 = tmp / "r1.fq", tmp / "r2.fq"
@@ -1315,7 +1331,8 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
     names = [f"pair{i}" for i in range(N_PAIRS)]
     sam, prof = tmp / "pe.sam", tmp / "pe.json"
     rescue_launches = dict.fromkeys(kernels.launch_counts(), 0)
-    run_rescues, merge = pe.run_rescues_batched, pe.merge_rescues
+    run_rescues = pe.rescue.run_rescues_batched
+    merge = pe.rescue.merge_rescues
 
     def counted(fn):
         def run(*args, **kw):
@@ -1325,8 +1342,8 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
                 rescue_launches[k] += v - before[k]
             return out
         return run
-    pe.run_rescues_batched = counted(run_rescues)
-    pe.merge_rescues = counted(merge)
+    pe.rescue.run_rescues_batched = counted(run_rescues)
+    pe.rescue.merge_rescues = counted(merge)
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -1339,7 +1356,8 @@ def mem_pe(fa, tmp: pathlib.Path, ref) -> dict:
             wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
     finally:
-        pe.run_rescues_batched, pe.merge_rescues = run_rescues, merge
+        pe.rescue.run_rescues_batched = run_rescues
+        pe.rescue.merge_rescues = merge
     if rc != 0:
         raise AssertionError(f"repro_torch.cli mem (paired) exited {rc}")
     payload = obs.read_profile(prof)
@@ -2675,7 +2693,7 @@ def baseline_phase(idx, dev, reads, names, body: list[str], stages: dict,
     opt = PipelineOptions(device=str(dev))
     lens = np.full(len(reads), reads.shape[1], np.int64)
     mems = collect_smems_batch(idx, reads, lens, opt.mem,
-                               occ_fn=attach_occ_config(idx, dev).occ_fn)
+                               occ=attach_occ_config(idx, dev))
     fm = idx.device(dev)
     looked_up = []
 
@@ -2791,7 +2809,7 @@ def main() -> int:
         se_calls = []
         with recording_galign(se_calls):
             run_se_batched(idx, reads[:N_SAMPLE_READS],
-                           PipelineOptions(device=str(dev)))
+                           PipelineOptions(device=str(dev)), occ=cfg)
         if len(se_calls) != 1 or len(gcalls) != 2:
             raise AssertionError(f"galign calls: SE {len(se_calls)}, PE "
                                  f"{[len(c) for c in gcalls]}")

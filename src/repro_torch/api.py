@@ -16,7 +16,8 @@ The counterpart of ``repro.api``::
   PyTorch versions — what the tests use.
 * Engines: ``AlignOptions.engine`` selects a driver pair through a
   registry (``register_engine``).  An engine is two callables with the
-  driver signatures of ``repro_torch.core.pipeline``:
+  driver signatures of ``repro_torch.core.pipeline`` (SE) and
+  ``repro_torch.pe`` (PE):
 
       se(idx, reads, PipelineOptions)                  -> (results, stats)
       pe(idx, r1, r2, PipelineOptions, PEOptions, names) -> (lines, stats)
@@ -48,10 +49,11 @@ import torch
 
 from . import obs
 from .core.contig import sam_header as _contig_header
-from .core.pipeline import run_pe_baseline, run_se_baseline
+from .core.pipeline import run_se_baseline
 from .core.sam import format_sam
 from .kernels.engine import run_pe_cuda, run_se_cuda
 from .options import AlignOptions, parse_read_group
+from .pe import run_pe_baseline
 
 VERSION = "0.2.0"                 # keep in sync with pyproject.toml
 

@@ -31,7 +31,8 @@ import dataclasses
 
 import numpy as np
 
-from .fmindex import FMIndex, build_index
+from .fmindex import (PERSIST_ARRAYS, PERSIST_SCALARS, FMIndex,
+                      build_index, index_from_arrays)
 
 DEFAULT_RNAME = "ref"
 
@@ -80,6 +81,32 @@ def with_contigs(base: FMIndex, names, offsets, lengths) -> ContigIndex:
     return ContigIndex(**fields, names=tuple(names), offsets=offsets,
                        lengths=lengths,
                        edges=make_edges(offsets, int(base.n_ref)))
+
+
+def index_from_reference(arrays: dict, scalars: dict) -> FMIndex:
+    """The port's index from the JAX package's ``FMIndex`` fields.
+
+    ``arrays`` maps each name in ``PERSIST_ARRAYS`` to a numpy array and
+    ``scalars`` each name in ``PERSIST_SCALARS`` to an int — the fields
+    ``repro.core.fmindex.FMIndex`` persists.  An optional
+    ``scalars["contigs"]`` (the ``contig_table`` dict) reattaches a
+    multi-contig table.  The result gives the same occ and SA values as
+    the index the fields came from.
+    """
+    missing = (set(PERSIST_ARRAYS) - set(arrays)) | \
+        (set(PERSIST_SCALARS) - set(scalars))
+    if missing:
+        raise ValueError(f"index fields missing: {sorted(missing)}")
+    if int(scalars["N"]) != 2 * int(scalars["n_ref"]) + 1 or \
+            len(arrays["bwt"]) != int(scalars["N"]):
+        raise ValueError("index fields disagree on N")
+    if int(scalars["N"]) >= 2 ** 31:
+        raise ValueError("N >= 2^31 does not fit the int32 device view")
+    idx = index_from_arrays(arrays, scalars)
+    ct = scalars.get("contigs")
+    if ct is None:
+        return idx
+    return with_contigs(idx, ct["names"], ct["offsets"], ct["lengths"])
 
 
 def contig_table(idx) -> dict | None:

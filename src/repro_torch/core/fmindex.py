@@ -245,33 +245,6 @@ def index_from_arrays(arrays: dict, scalars: dict) -> FMIndex:
                    **{k: np.asarray(arrays[k]) for k in PERSIST_ARRAYS})
 
 
-def index_from_reference(arrays: dict, scalars: dict) -> FMIndex:
-    """The port's index from the JAX package's ``FMIndex`` fields.
-
-    ``arrays`` maps each name in ``PERSIST_ARRAYS`` to a numpy array and
-    ``scalars`` each name in ``PERSIST_SCALARS`` to an int — the fields
-    ``repro.core.fmindex.FMIndex`` persists.  An optional
-    ``scalars["contigs"]`` (the ``contig_table`` dict) reattaches a
-    multi-contig table.  The result gives the same occ and SA values as
-    the index the fields came from.
-    """
-    missing = (set(PERSIST_ARRAYS) - set(arrays)) | \
-        (set(PERSIST_SCALARS) - set(scalars))
-    if missing:
-        raise ValueError(f"index fields missing: {sorted(missing)}")
-    if int(scalars["N"]) != 2 * int(scalars["n_ref"]) + 1 or \
-            len(arrays["bwt"]) != int(scalars["N"]):
-        raise ValueError("index fields disagree on N")
-    if int(scalars["N"]) >= 2 ** 31:
-        raise ValueError("N >= 2^31 does not fit the int32 device view")
-    idx = index_from_arrays(arrays, scalars)
-    ct = scalars.get("contigs")
-    if ct is None:
-        return idx
-    from .contig import with_contigs      # contig.py imports this module
-    return with_contigs(idx, ct["names"], ct["offsets"], ct["lengths"])
-
-
 def build_index(ref: np.ndarray) -> FMIndex:
     """Build the full FM-index over S = ref + revcomp(ref).
 

@@ -4,19 +4,23 @@ The PyTorch counterpart of ``repro.core.pipeline``.  Two organisations
 with IDENTICAL output, registered as the ``cuda`` and ``baseline``
 engines of ``repro_torch.api``:
 
-* ``run_se_batched`` / ``run_pe_batched`` — the paper's reorganisation
-  (Fig 2 right; PE runs both ends through it and then the paired-end
-  tail of ``repro_torch.pe``): every stage runs over the WHOLE batch
+* ``run_se_batched`` — the paper's reorganisation (Fig 2 right; PE's
+  ``repro_torch.pe.run_pe_batched`` runs both ends through it and then
+  the paired-end tail): every stage runs over the WHOLE batch
   before the next stage; lockstep-batched SMEM whose occ lookups run on
   the device, a single-gather SAL on the device, and inter-task BSW with
   length-sorting (§5.3.1) through the bsw kernel.  Extension decisions
   that bwa makes sequentially (skip-if-contained; band-doubling retry)
   are replayed AFTER batched extension, exactly like bwa-mem2 (§5.3.2).
-  PE mate rescue reuses ``BatchedBSWExecutor``, so its extensions go
-  through the same kernel.
+  The kernels are called on ``opt.device`` through their packages
+  (``kernels.bsw``, ``kernels.galign``), looked up at each call; SMEM's
+  round kernel is the ``OccConfig`` the caller passes.  PE mate rescue
+  reuses ``BatchedBSWExecutor``, so its extensions go through the same
+  kernel.
 
-* ``run_se_baseline`` / ``run_pe_baseline`` — the original BWA-MEM
-  organisation (Fig 2 left), the yardstick of the paper's speedups:
+* ``run_se_baseline`` (and PE's ``repro_torch.pe.run_pe_baseline``) —
+  the original BWA-MEM organisation (Fig 2 left), the yardstick of the
+  paper's speedups:
   each read runs through every stage before the next read starts, with
   the scalar oracles on the host whatever ``device`` says (the SMEM
   oracle over ``FMIndex.occ``, one compressed-SA LF walk a lookup,
@@ -37,6 +41,9 @@ from typing import Callable
 import numpy as np
 
 from .. import obs
+from ..kernels import bsw as kbsw
+from ..kernels import galign as kgalign
+from ..kernels.fmocc.ops import DEFAULT_CANDIDATE, OccConfig
 from . import smem as smem_mod
 from . import sal as sal_mod
 from .bsw import BSWParams, ExtResult, bsw_extend, bsw_extend_tasks
@@ -209,11 +216,7 @@ def chain2aln(chain: Chain, query: np.ndarray, idx: FMIndex,
 # BSW executors
 # ---------------------------------------------------------------------
 
-# ---------------------------------------------------------------------
-# BSW executors
-# ---------------------------------------------------------------------
-
-def _bsw_immediate(p: BSWParams):
+def bsw_immediate(p: BSWParams):
     """Baseline executor: scalar oracle, executed inline (read-major)."""
     def fn(side, seed_id, rnd, q, t, h0, w):
         if len(q) == 0 or len(t) == 0:
@@ -227,14 +230,15 @@ def _bsw_immediate(p: BSWParams):
 class BatchedBSWExecutor:
     """Optimized executor (paper §5.3): pre-plans every (seed, side, round)
     extension task, runs them as length-sorted inter-task batches, then
-    serves the decision replay from the result table."""
+    serves the decision replay from the result table.  Each block runs
+    through ``kernels.bsw.bsw_extend_kernel`` on ``device``."""
 
-    def __init__(self, p: BSWParams, *, batch_fn, block: int = 256,
+    def __init__(self, p: BSWParams, *, device, block: int = 256,
                  sort: bool = True):
         self.p = p
+        self.device = device
         self.block = block
         self.sort = sort
-        self.batch_fn = batch_fn      # one block of tasks; see bsw_batch_fn
         self.table: dict = {}
         self.stats = obs.Snapshot(tasks=0, cells_useful=0, cells_total=0)
 
@@ -248,7 +252,9 @@ class BatchedBSWExecutor:
                                    [tasks[k][2] for k in keys], self.p,
                                    ws=[tasks[k][3] for k in keys],
                                    block=self.block, sort=self.sort,
-                                   batch_fn=self.batch_fn)
+                                   batch_fn=functools.partial(
+                                       kbsw.bsw_extend_kernel,
+                                       device=self.device))
         for k, r in zip(keys, res):
             self.table[k] = r
         self.stats.merge_in(st)
@@ -455,8 +461,8 @@ def apply_cigar(a: Alignment, query: np.ndarray, S: np.ndarray,
 
 def align_regions(regions, S: np.ndarray, p: BSWParams, align) -> list:
     """The CIGARs of every ``(a, query)`` region, in order, from ONE call
-    of ``align`` (``host_align``, or ``galign_batch_fn``'s galign kernel)
-    over all their ``finalize_task``s."""
+    of ``align`` (``host_align``, or ``kernels.galign.global_align_batch``
+    on a device) over all their ``finalize_task``s."""
     tasks = [finalize_task(a, q, S) for a, q in regions]
     return [cig for _, cig in align(tasks, p)]
 
@@ -504,33 +510,6 @@ class PipelineOptions:
     device: str = "cuda"            # where SMEM, SAL and BSW run
 
 
-def bsw_batch_fn(opt: PipelineOptions):
-    """Per-block BSW (``kernels.bsw.bsw_extend_kernel``) on ``opt.device``."""
-    from ..kernels.bsw import bsw_extend_kernel   # kernels import core
-    return functools.partial(bsw_extend_kernel, device=opt.device)
-
-
-def galign_batch_fn(opt: PipelineOptions):
-    """Finalize's banded global alignments, all of a batch in one call
-    (``kernels.galign.global_align_batch``) on ``opt.device``."""
-    from ..kernels.galign import global_align_batch   # kernels import core
-    return functools.partial(global_align_batch, device=opt.device)
-
-
-def diagseed_batch_fn(opt: PipelineOptions):
-    """Mate rescue's anchor search, every candidate window of a batch in
-    one call (``kernels.diagseed.diag_seed_batch``) on ``opt.device``."""
-    from ..kernels.diagseed import diag_seed_batch   # kernels import core
-    return functools.partial(diag_seed_batch, device=opt.device)
-
-
-def occ_fn_for(idx: FMIndex, opt: PipelineOptions):
-    """SMEM occ callable on ``opt.device``: the occ-layout configuration
-    the engine's sweep attached to the index (``kernels.engine``)."""
-    from ..kernels.engine import attach_occ_config   # kernels import core
-    return attach_occ_config(idx, opt.device).occ_fn
-
-
 def run_se_baseline(idx: FMIndex, reads: np.ndarray,
                     opt: PipelineOptions = PipelineOptions()):
     """Original organisation: per-read, the scalar oracles on the host
@@ -542,7 +521,7 @@ def run_se_baseline(idx: FMIndex, reads: np.ndarray,
     edges = contig_edges(idx)
     elist = edges.tolist()          # scalar bisect beats np in this loop
     stats = obs.Snapshot(sa_lookups=0, bsw_tasks=0)
-    bsw_fn_factory = _bsw_immediate(opt.bsw)
+    bsw_fn_factory = bsw_immediate(opt.bsw)
     results = []
     for r in range(len(reads)):
         q = reads[r]
@@ -591,18 +570,22 @@ def run_se_baseline(idx: FMIndex, reads: np.ndarray,
 
 
 def run_se_batched(idx: FMIndex, reads: np.ndarray,
-                   opt: PipelineOptions = PipelineOptions()):
-    """Paper's organisation (Fig 2 right): stage-major over the batch."""
+                   opt: PipelineOptions = PipelineOptions(), *,
+                   occ: OccConfig | None = None):
+    """Paper's organisation (Fig 2 right): stage-major over the batch,
+    SMEM's rounds through the round kernel ``occ`` names (the engine's
+    sweep picks it; omitted, ``DEFAULT_CANDIDATE`` on ``opt.device``,
+    what the sweep gives on the CPU)."""
     S = idx.seq
     l_pac = idx.n_ref
     edges = contig_edges(idx)
     R, L = reads.shape
     lens = np.full(R, L, np.int64)
-    # Stage 1: batched SMEM, occ lookups through the fmocc kernel layout
-    # the sweep picked for this index and device
+    occ = occ or OccConfig(*DEFAULT_CANDIDATE, opt.device)
+    # Stage 1: batched SMEM, every round one launch of the fmocc kernel
     with obs.span("smem", reads=R):
         mems = smem_mod.collect_smems_batch(idx, reads, lens, opt.mem,
-                                            occ_fn=occ_fn_for(idx, opt))
+                                            occ=occ)
     # Stage 2: batched SAL (uncompressed SA, one gather for everything)
     with obs.span("sal"):
         seeds_per_read, n_lookups = sal_mod.seeds_from_intervals(
@@ -619,7 +602,7 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
             for ci, c in enumerate(chains):
                 jobs.append(((r, ci), c, reads[r], idx))
     # Stage 4: batched inter-task BSW with length sorting
-    execu = BatchedBSWExecutor(opt.bsw, batch_fn=bsw_batch_fn(opt),
+    execu = BatchedBSWExecutor(opt.bsw, device=opt.device,
                                block=opt.bsw_block, sort=opt.bsw_sort)
     with obs.span("bsw", jobs=len(jobs)):
         execu.plan_and_run(jobs)
@@ -638,7 +621,8 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
                                             all_hits=opt.all_hits))
         cigars = iter(align_regions(
             [(a, reads[r]) for r in range(R) for a in emitted[r]], S,
-            opt.bsw, galign_batch_fn(opt)))
+            opt.bsw, functools.partial(kgalign.global_align_batch,
+                                       device=opt.device)))
         with obs.span("finalize.cigar"):
             results = []
             for r in range(R):
@@ -651,42 +635,3 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
                          cells_useful=execu.stats["cells_useful"],
                          cells_total=execu.stats["cells_total"])
     return results, stats
-
-
-
-def run_pe_baseline(idx: FMIndex, reads1: np.ndarray,
-                    reads2: np.ndarray,
-                    opt: PipelineOptions = PipelineOptions(),
-                    pe_opt=None, names=None):
-    """Paired-end baseline: per-read scalar SE alignment of both ends,
-    then insert-size estimation, SCALAR mate rescue and pair-aware SAM
-    emission.  Returns (sam_lines, stats)."""
-    from ..pe import pair_pipeline   # deferred: repro_torch.pe imports this
-    res1, s1 = run_se_baseline(idx, reads1, opt)
-    res2, s2 = run_se_baseline(idx, reads2, opt)
-    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
-                                  pe_opt, batched=False, names=names)
-    stats = obs.Snapshot.merge_all([s1, s2])
-    stats.update(pstats)
-    return lines, stats
-
-
-def run_pe_batched(idx: FMIndex, reads1: np.ndarray,
-                   reads2: np.ndarray,
-                   opt: PipelineOptions = PipelineOptions(),
-                   pe_opt=None, names=None):
-    """Paired-end driver (paper's organisation extended to PE):
-    stage-major batched SE alignment over BOTH ends at once — one lockstep
-    SMEM loop and shared BSW blocks — then the whole batch's mate-rescue
-    extensions pooled through the length-sorted BSW executor.  Returns
-    (sam_lines, stats)."""
-    from ..pe import pair_pipeline   # deferred: repro_torch.pe imports this
-    n = len(reads1)
-    both = np.concatenate([reads1, reads2], axis=0)
-    res, s = run_se_batched(idx, both, opt)
-    res1, res2 = res[:n], res[n:]
-    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
-                                  pe_opt, batched=True, names=names)
-    stats = obs.Snapshot(s)
-    stats.update(pstats)
-    return lines, stats

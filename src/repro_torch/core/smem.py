@@ -26,13 +26,12 @@ An SMEM is reported as (k, l, s, qbeg, qend): bi-interval + query span.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import obs
-from ..kernels.fmocc.ops import ext_round
+from ..kernels.fmocc.ops import OccConfig, ext_round
 from .fmindex import FMIndex
 
 
@@ -234,13 +233,12 @@ class SmemTaskBatch:
 _NEVER = np.iinfo(np.int64).max
 
 
-def _ext_round(idx: FMIndex, which: str, host: np.ndarray, occ_fn):
-    """One extension round on ``occ_fn``'s device.
+def _ext_round(idx: FMIndex, which: str, host: np.ndarray, occ: OccConfig):
+    """One extension round through the round kernel ``occ`` names, on
+    its device.
 
-    ``occ_fn`` is a configuration callable carrying ``.layout``,
-    ``.block`` and ``.device`` (``kernels.fmocc.make_occ_fn``).  ``host``
-    is a C-contiguous int32 (4, n) array, the rows k, l, s, c of the
-    round's entries, which the caller builds from its flat state (the
+    ``host`` is a C-contiguous int32 (4, n) array, the rows k, l, s, c of
+    the round's entries, which the caller builds from its flat state (the
     ``smem.pack`` span) and writes no more: it goes to the device as ONE
     tensor, ``ext_round`` extends it there, and (k', l', s') come back as
     one int32 (3, n) array.
@@ -255,11 +253,11 @@ def _ext_round(idx: FMIndex, which: str, host: np.ndarray, occ_fn):
     obs.count("smem_round_slots", n)
     if not n:
         return np.empty((3, 0), np.int32)
-    dev = occ_fn.device
+    dev = occ.device
     with obs.span("smem.round"):
         st = torch.from_numpy(host).to(dev)
-        got = ext_round(idx.device(dev), which, *st, layout=occ_fn.layout,
-                        block=occ_fn.block).cpu().numpy()
+        got = ext_round(idx.device(dev), which, *st, layout=occ.layout,
+                        block=occ.block).cpu().numpy()
     obs.count("smem_h2d_bytes", host.nbytes)
     obs.count("smem_d2h_bytes", got.nbytes)
     return got
@@ -291,7 +289,7 @@ def _segments_reversed(recs: np.ndarray) -> np.ndarray:
 def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
                 task_read: np.ndarray, task_x: np.ndarray,
                 task_min_intv: np.ndarray, *,
-                occ_fn: Callable) -> SmemTaskBatch:
+                occ: OccConfig) -> SmemTaskBatch:
     """Lockstep-batched smem1 over T independent tasks.
 
     Per round, ONE vectorized extension call serves every live (task, entry)
@@ -343,7 +341,7 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
             F = F.compress(go, axis=1); b = b.compress(go)
         if not F.shape[1]:
             break
-        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ_fn)
+        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ)
         changed = got[2] != F[3]           # interval size changed
         if changed.any():
             push(changed)
@@ -371,7 +369,7 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
         c = qf.take(B[4] + i, mode="clip")
         c = np.where((i >= 0) & (c <= 3), c, 4)
         host = _pack(kls, np.repeat(c, cnt))
-        got = _ext_round(idx, "bwd", host, occ_fn)
+        got = _ext_round(idx, "bwd", host, occ)
         # the round's sweep, over its entries at once: an entry fails on
         # an ambiguous base, at the read's start or below min_intv; a
         # task emits its first entry when that fails (no longer match
@@ -410,7 +408,7 @@ def smem1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
 def seed_strategy1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
                          task_read: np.ndarray, task_x: np.ndarray,
                          min_len: int, max_intv: int, *,
-                         occ_fn: Callable):
+                         occ: OccConfig):
     """Lockstep-batched bwt_seed_strategy1 over compact state (the live
     tasks alone). Returns (out (T, 5) k,l,s,qb,qe; has; ret)."""
     T = len(task_read)
@@ -445,7 +443,7 @@ def seed_strategy1_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
             F = F.compress(go, axis=1); b = b.compress(go)
         if not F.shape[1]:
             break
-        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ_fn)
+        got = _ext_round(idx, "fwd", _pack(F[1:4], b), occ)
         hit = (got[2] < max_intv) & (step >= min_len)
         if hit.any():
             t = F[0, hit]
@@ -470,7 +468,7 @@ def _long_mems(batch: SmemTaskBatch, task_read: np.ndarray, min_len: int):
 
 
 def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
-                        opt: MemOptions, *, occ_fn: Callable):
+                        opt: MemOptions, *, occ: OccConfig):
     """Batched mem_collect_intv over a whole read batch (the Fig-2 workflow).
 
     Returns per-read python lists of (k,l,s,qb,qe), identical to
@@ -498,7 +496,7 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
             continue
         tr = np.flatnonzero(run)
         batch = smem1_batch(idx, reads, lens, tr, x[tr],
-                            np.ones(len(tr), np.int64), occ_fn=occ_fn)
+                            np.ones(len(tr), np.int64), occ=occ)
         found.append(_long_mems(batch, tr, opt.min_seed_len))
         x[tr] = batch.ret
 
@@ -510,7 +508,7 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
     if split.shape[1]:
         batch = smem1_batch(idx, reads, lens, split[0],
                             (split[4] + split[5]) >> 1, split[3] + 1,
-                            occ_fn=occ_fn)
+                            occ=occ)
         found.append(_long_mems(batch, split[0], opt.min_seed_len))
 
     # ---- pass 3: forward-only seeds, lockstep x-loop ----
@@ -529,7 +527,7 @@ def collect_smems_batch(idx: FMIndex, reads: np.ndarray, lens: np.ndarray,
             tr = np.flatnonzero(run)
             out, has, ret = seed_strategy1_batch(
                 idx, reads, lens, tr, x[tr], opt.min_seed_len,
-                opt.max_mem_intv, occ_fn=occ_fn)
+                opt.max_mem_intv, occ=occ)
             found.append(np.vstack([tr[has], out[has].T]))
             x[tr] = ret
 

@@ -32,9 +32,6 @@ SMEM_LIMIT = 232_448
 #: since a CTA holds its shared memory until its longest task ends.
 MAX_WARPS = 8
 
-#: kernel launches by kernel name (reset by kernels.reset_launch_counts)
-LAUNCHES = {"bsw": 0}
-
 
 def warp_smem_bytes(qmax: int) -> int:
     """Shared memory of one task: the H and E rows as int32 and the query
@@ -91,7 +88,7 @@ def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
     with obs.device_span("bsw", dev, build.GATE):
         err = entry(*call)
     build.check(err, "bsw")
-    build.count_launch(LAUNCHES, "bsw")
+    build.count_launch("bsw")
     return out
 
 

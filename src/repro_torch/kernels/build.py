@@ -9,6 +9,10 @@ an unchanged one loads at once.
 
 Nothing is built at import time: ``library()`` builds on its first call,
 which is the first kernel launch on a CUDA tensor.
+
+It also holds what every wrapper shares: the one launch counter
+(``LAUNCHES``, ``count_launch``), the launch gate (``GATE``) and the
+host-to-device copy ``to_device``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import numpy as np
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -53,9 +60,12 @@ LOADERS = tuple(name for name in SIGNATURES if name.endswith("_load"))
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-#: guards every kernel's launch counter: shards on worker threads launch
-#: at once, and ``launches[name] += 1`` is a read-modify-write
+#: guards ``LAUNCHES``: shards on worker threads launch at once, and
+#: ``LAUNCHES[name] += 1`` is a read-modify-write
 LAUNCH_LOCK = threading.Lock()
+#: kernel launches by kernel name (reset by kernels.reset_launch_counts)
+LAUNCHES = dict.fromkeys(("fmocc_ext_eta32", "fmocc_ext_eta128", "bsw",
+                          "galign", "diagseed"), 0)
 #: nvcc's output of the last build (the ptxas resource report)
 build_log = ""
 
@@ -130,10 +140,19 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def count_launch(launches: dict, name: str) -> None:
-    """Add one to ``launches[name]`` under ``LAUNCH_LOCK``."""
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]`` under ``LAUNCH_LOCK``."""
     with LAUNCH_LOCK:
-        launches[name] += 1
+        LAUNCHES[name] += 1
+
+
+def to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array on ``dev``; on a card through pinned memory without
+    waiting for the copy (the stream orders it)."""
+    x = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(dev).type != "cuda":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)
 
 
 def check(err: int, name: str) -> None:

@@ -25,15 +25,11 @@ import torch
 
 from ... import obs
 from .. import build
-from ..galign.ops import to_device
 from .ref import diagseed_ref
 
 #: dynamic shared memory a CTA may take on the H100 (227 KB), less 1 KB
 #: for the kernel's static reduction array
 SMEM_CTA_MAX = 232448 - 1024
-
-#: kernel launches by kernel name (reset by kernels.reset_launch_counts)
-LAUNCHES = {"diagseed": 0}
 
 
 def stage_bytes(wlen, mlen) -> np.ndarray:
@@ -94,7 +90,7 @@ def diagseed_launch(win, woff, wlen, mates, moff, mlen, min_len: int,
     with obs.device_span("diagseed", dev, build.GATE):
         err = entry(*args)
     build.check(err, "diagseed")
-    build.count_launch(LAUNCHES, "diagseed")
+    build.count_launch("diagseed")
     return out
 
 
@@ -132,7 +128,7 @@ def diag_seed_batch(queries, S: np.ndarray, wlos, whis, min_len: int, *,
         return out
     with obs.span("kernel.diagseed", cat="kernel", windows=int(live.size)):
         arrays = pack([queries[k] for k in live], S, wlos[live], whis[live])
-        args = [to_device(a, device) for a in arrays]
+        args = [build.to_device(a, device) for a in arrays]
         if args[0].device.type != "cuda":
             got = diagseed_call(*args, min_len)
         else:

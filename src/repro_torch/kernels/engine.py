@@ -2,8 +2,8 @@
 their hot kernels (fmocc extension rounds, BSW blocks, including the PE
 mate-rescue blocks) through ``kernels``.
 
-It is ``core.pipeline.run_se_batched`` / ``run_pe_batched`` with the occ
-layout picked by the
+It is ``core.pipeline.run_se_batched`` / ``pe.run_pe_batched`` with the
+occ configuration picked by the
 attach-time sweep — the paper's eta experiment (§4.4 / Table 4) run on
 the card: each (layout, threads-per-block) candidate is timed with CUDA
 events on a synthetic batch of extension entries, and the fastest
@@ -18,20 +18,18 @@ Replaces ``repro.kernels.engine``'s Pallas sweep (``sweep_occ_configs`` /
 
 from __future__ import annotations
 
-import dataclasses
 import threading
 
 import numpy as np
 import torch
 
 from .. import obs
-from ..core.pipeline import (PipelineOptions, run_pe_batched,
-                             run_se_batched)
-from .fmocc.ops import DIRECTIONS, ext_round, make_occ_fn
+from ..core.pipeline import PipelineOptions, run_se_batched
+from ..pe import run_pe_batched
+from .fmocc.ops import DEFAULT_CANDIDATE, DIRECTIONS, OccConfig, ext_round
 
 #: (layout, threads per block) candidates the sweep times on the card
 SWEEP_CANDIDATES = (("eta32", 256), ("eta32", 512), ("eta128", 256))
-DEFAULT_CANDIDATE = ("eta32", 256)
 #: Synthetic extension entries per launch (8 occ lookups each).  Large
 #: enough that one launch's device time is several times the wrapper's
 #: host time, so launches queue up behind each other and the events time
@@ -43,19 +41,6 @@ SWEEP_REPS = 3           # timed reps per candidate (best taken)
 #: faster; nearer than that the timing cannot tell them apart, and the
 #: pick (and the per-layout launch counts) would change from run to run.
 SWEEP_MARGIN = 0.05
-
-
-@dataclasses.dataclass(frozen=True)
-class OccConfig:
-    """Occ-kernel configuration attached to one index + device."""
-    layout: str
-    block: int
-    device: str
-
-    @property
-    def occ_fn(self):
-        """The stable configuration callable SMEM rounds read."""
-        return make_occ_fn(self.layout, self.block, self.device)
 
 
 def sweep_entries(N: int, n: int, seed: int) -> np.ndarray:
@@ -146,7 +131,7 @@ def run_se_cuda(idx, reads, opt: PipelineOptions = PipelineOptions()):
     Alignment, stats); ``stats["occ_kernel"]`` names the occ
     configuration the SMEM rounds ran ("layout/block")."""
     cfg = attach_occ_config(idx, opt.device)
-    results, stats = run_se_batched(idx, reads, opt)
+    results, stats = run_se_batched(idx, reads, opt, occ=cfg)
     stats["occ_kernel"] = f"{cfg.layout}/{cfg.block}"
     return results, stats
 
@@ -158,6 +143,6 @@ def run_pe_cuda(idx, reads1, reads2,
     ``stats["occ_kernel"]`` as in ``run_se_cuda``."""
     cfg = attach_occ_config(idx, opt.device)
     lines, stats = run_pe_batched(idx, reads1, reads2, opt, pe_opt,
-                                  names=names)
+                                  names=names, occ=cfg)
     stats["occ_kernel"] = f"{cfg.layout}/{cfg.block}"
     return lines, stats

@@ -1,1 +1,2 @@
-from .ops import LAYOUTS, ext_round, make_occ_fn, occ  # noqa: F401
+from .ops import (DEFAULT_CANDIDATE, LAYOUTS, OccConfig,  # noqa: F401
+                  ext_round, occ)

@@ -11,16 +11,19 @@ launch fails; any other device raises.
 ``occ`` is Occ(c, i) alone, for CPU tensors (the plain version); there
 is no standalone occ kernel, so it raises for any other device.
 
+``OccConfig`` names the round kernel SMEM runs on one device: its bucket
+layout and ``block`` (threads per block), which take the place of the
+Pallas layout and query tile ``qb``; the engine's sweep picks them.
+
 Replaces ``repro.kernels.fmocc.ops`` (``_occ_impl``,
 ``_backward_ext_impl`` / ``backward_ext_pallas``) and the two Pallas
 kernels behind them, as one jitted SMEM round of ``repro.core.smem``
-runs them.  ``block`` (threads per block) takes the place of the Pallas
-query tile ``qb``; the engine's sweep picks it.
+runs them.
 """
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 
 import torch
 
@@ -34,9 +37,8 @@ LAYOUTS = ("eta32", "eta128")
 #: extension directions of a round
 DIRECTIONS = ("bwd", "fwd")
 BLOCK = 256
-
-#: kernel launches by kernel name (reset by kernels.reset_launch_counts)
-LAUNCHES = {"fmocc_ext_eta32": 0, "fmocc_ext_eta128": 0}
+#: (layout, block) where no sweep has timed the candidates (the CPU)
+DEFAULT_CANDIDATE = ("eta32", BLOCK)
 
 
 def _check_layout(layout: str) -> None:
@@ -45,11 +47,19 @@ def _check_layout(layout: str) -> None:
                          f"(known: {', '.join(LAYOUTS)})")
 
 
+@dataclasses.dataclass(frozen=True)
+class OccConfig:
+    """The round kernel SMEM runs: bucket ``layout`` and ``block``, on
+    ``device``."""
+    layout: str
+    block: int
+    device: str
+
+
 def occ(fm: FMArrays, c: torch.Tensor, i: torch.Tensor, *,
-        layout: str = "eta32", block: int = BLOCK) -> torch.Tensor:
+        layout: str = "eta32") -> torch.Tensor:
     """Occ(c, i) for tensors ``c`` (0..3) and ``i`` (-1..N-1) of one
-    shape on the CPU, by the plain version of ``layout``; ``block`` is
-    accepted for the ``occ_fn`` signature and unused."""
+    shape on the CPU, by the plain version of ``layout``."""
     _check_layout(layout)
     if c.device.type != "cpu":
         raise RuntimeError(f"fmocc occ has no kernel for device {c.device}: "
@@ -126,25 +136,6 @@ def _ext_round_cuda(fm: FMArrays, which: str, k, l, s, c, layout: str,
     with obs.device_span("fmocc", dev, build.GATE):
         err = entry(*args)
     build.check(err, name)
-    build.count_launch(LAUNCHES, name)
+    build.count_launch(name)
     return out
 
-
-def make_occ_fn(layout: str = "eta32", block: int = BLOCK,
-                device="cuda"):
-    """One stable ``occ_fn(fm, c, i)`` per (layout, block, device), with
-    the signature of ``core.fmindex.occ_opt_v``.  ``core.smem`` reads its
-    ``.layout``, ``.block`` and ``.device`` and runs each round through
-    ``ext_round`` there; calling it runs ``occ`` (CPU tensors only)."""
-    return _make_occ_fn(layout, int(block), str(torch.device(device)))
-
-
-@functools.lru_cache(maxsize=None)
-def _make_occ_fn(layout: str, block: int, device: str):
-    def occ_fn(fm: FMArrays, c: torch.Tensor, i: torch.Tensor):
-        return occ(fm, c, i, layout=layout, block=block)
-    occ_fn.__name__ = occ_fn.__qualname__ = f"occ_{layout}_b{block}"
-    occ_fn.layout = layout
-    occ_fn.block = block
-    occ_fn.device = torch.device(device)
-    return occ_fn

@@ -48,9 +48,6 @@ SMEM_CTA_MAX = 232448
 #: global-decision path
 SLOT_MAX = SMEM_CTA_MAX // WARPS
 
-#: kernel launches by kernel name (reset by kernels.reset_launch_counts)
-LAUNCHES = {"galign": 0}
-
 
 def _up16(x):
     return (x + 15) // 16 * 16
@@ -177,7 +174,8 @@ def galign_launch(qs: torch.Tensor, ts: torch.Tensor, ns: torch.Tensor,
     runs = torch.empty((T, pl.stride), dtype=torch.int32, device=dev)
     if T == 0:
         return score, nruns, runs
-    meta = to_device(np.concatenate([pl.order, pl.boff, pl.roff]), dev)
+    meta = build.to_device(np.concatenate([pl.order, pl.boff, pl.roff]),
+                           dev)
     bits = torch.empty(max(pl.nbits, 1), dtype=torch.uint8, device=dev)
     rows = torch.empty(max(pl.nrows, 1), dtype=torch.int32, device=dev)
     entry = build.library().galign
@@ -194,7 +192,7 @@ def galign_launch(qs: torch.Tensor, ts: torch.Tensor, ns: torch.Tensor,
     build.check(err, "galign")
     for count in (pl.n_smem, pl.n_global, pl.n_wide):
         if count:
-            build.count_launch(LAUNCHES, "galign")
+            build.count_launch("galign")
     return score, nruns, runs
 
 
@@ -206,15 +204,6 @@ def resident_ctas(pl: Plan) -> int:
                                            ctypes.byref(blocks))
     build.check(err, "galign_occupancy")
     return blocks.value
-
-
-def to_device(a: np.ndarray, dev) -> torch.Tensor:
-    """A host array on ``dev``; on a card through pinned memory without
-    waiting for the copy (the stream orders it)."""
-    x = torch.from_numpy(np.ascontiguousarray(a))
-    if torch.device(dev).type != "cuda":
-        return x.to(dev)
-    return x.pin_memory().to(dev, non_blocking=True)
 
 
 def pack(tasks) -> list[np.ndarray]:
@@ -253,7 +242,7 @@ def global_align_batch(tasks, p: BSWParams, *, device):
         obs.count("kernel_galign_dispatches")
         obs.count("galign_tasks", len(tasks))
         arrays = pack(tasks)
-        args = [to_device(a, device) for a in arrays]
+        args = [build.to_device(a, device) for a in arrays]
         if args[0].device.type != "cuda":
             return unpack(*galign_call(*args, p))
         return unpack(*galign_launch(*args, p, plan(*arrays[2:])))

@@ -1,38 +1,42 @@
 """Paired-end alignment (bwa-mem's mem_sam_pe path), a copy of
-``repro.pe`` over the port's pipeline.
+``repro.pe`` over the port's pipeline, and the two PE drivers.
 
 Stages:
 
 1. insert-size estimation from high-confidence unique pairs (pestat.py);
 2. mate rescue — insert-window banded SW for unmapped/inconsistent mates,
-   scalar per-pair baseline vs. every window's anchor search in one
-   diagseed call and length-sorted inter-task batches through the
-   pipeline's BSW executor, so through the diagseed and bsw kernels on the
-   pipeline's device, the accepted mates finalized in one galign call
-   (rescue.py);
+   scalar per-pair baseline (``rescue_scalar``) vs. every window's anchor
+   search in one diagseed call and length-sorted inter-task batches
+   through the pipeline's BSW executor, so through the diagseed and bsw
+   kernels on the pipeline's device, the accepted mates finalized in one
+   galign call (``rescue_batched``; rescue.py);
 3. pair scoring/selection and pair-aware SAM emission with proper-pair
    FLAG/RNEXT/PNEXT/TLEN fields (pairing.py).
 
-The entry points are ``run_pe_batched`` and ``run_pe_baseline`` in
-``repro_torch.core.pipeline``.
+The drivers are ``run_pe_batched`` (the ``cuda`` engine's, through
+``kernels.engine.run_pe_cuda``) and ``run_pe_baseline`` (the
+``baseline`` engine's).
 """
 
+import numpy as np
+
 from .. import obs
-from ..core.pipeline import (bsw_batch_fn, diagseed_batch_fn,
-                             galign_batch_fn, host_align)
+from ..core.pipeline import PipelineOptions, run_se_baseline, run_se_batched
+from ..kernels.fmocc.ops import OccConfig
 from .pestat import (PairStat, estimate_pestat, infer_dir,  # noqa: F401
                      pestat_from_jsonable, pestat_to_jsonable)
 from .rescue import (PEOptions, RescueTask, best_diag_seed,  # noqa: F401
                      host_diag_seeds, merge_rescues, plan_rescues,
-                     rescue_window, run_rescues_batched, run_rescues_scalar)
+                     rescue_batched, rescue_scalar, rescue_window,
+                     run_rescues_batched, run_rescues_scalar)
 from .pairing import (blend_mapq, emit_pair, pair_score,  # noqa: F401
                       raw_mapq, select_pair)
 
 
 def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
-                  batched: bool, names=None):
-    """Shared PE tail: pestat -> rescue (scalar or batched) -> pairing ->
-    SAM.
+                  rescue, names=None):
+    """Shared PE tail: pestat -> ``rescue`` (``rescue_scalar`` or
+    ``rescue_batched``) -> pairing -> SAM.
     ``res1``/``res2`` are the per-end alignment lists from the SE stage
     and are extended IN PLACE with rescued alignments.
 
@@ -51,22 +55,8 @@ def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
         else:
             pes = estimate_pestat(res1, res2, idx, max_ins=peopt.max_ins)
     with obs.span("pe_rescue"):
-        with obs.span("pe_rescue.plan"):
-            tasks = plan_rescues(
-                (res1, res2), (reads1, reads2), pes, idx, peopt,
-                seed_fn=diagseed_batch_fn(opt) if batched
-                else host_diag_seeds)
-        with obs.span("pe_rescue.extend"):
-            if batched:
-                outs, rstats = run_rescues_batched(
-                    tasks, idx, p, batch_fn=bsw_batch_fn(opt),
-                    block=opt.bsw_block, sort=opt.bsw_sort)
-            else:
-                outs, rstats = run_rescues_scalar(tasks, idx, p)
-        with obs.span("pe_rescue.merge"):
-            n_rescued = merge_rescues(
-                (res1, res2), tasks, outs, idx, p, opt.mem.min_seed_len,
-                peopt, align=galign_batch_fn(opt) if batched else host_align)
+        n_rescued, rstats = rescue((res1, res2), (reads1, reads2), pes, idx,
+                                   opt, peopt)
     lines: list[str] = []
     n_proper = 0
     with obs.span("pe_pair"):
@@ -83,4 +73,38 @@ def pair_pipeline(idx, reads1, reads2, res1, res2, opt, peopt=None, *,
                  pes_failed=[s.failed for s in pes],
                  pes_avg=[s.avg for s in pes],
                  pes_std=[s.std for s in pes])
+    return lines, stats
+
+
+def run_pe_baseline(idx, reads1: np.ndarray, reads2: np.ndarray,
+                    opt: PipelineOptions = PipelineOptions(),
+                    pe_opt=None, names=None):
+    """Paired-end baseline: per-read scalar SE alignment of both ends,
+    then insert-size estimation, SCALAR mate rescue and pair-aware SAM
+    emission.  Returns (sam_lines, stats)."""
+    res1, s1 = run_se_baseline(idx, reads1, opt)
+    res2, s2 = run_se_baseline(idx, reads2, opt)
+    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
+                                  pe_opt, rescue=rescue_scalar, names=names)
+    stats = obs.Snapshot.merge_all([s1, s2])
+    stats.update(pstats)
+    return lines, stats
+
+
+def run_pe_batched(idx, reads1: np.ndarray, reads2: np.ndarray,
+                   opt: PipelineOptions = PipelineOptions(),
+                   pe_opt=None, names=None, *, occ: OccConfig | None = None):
+    """Paired-end driver (paper's organisation extended to PE):
+    stage-major batched SE alignment over BOTH ends at once — one lockstep
+    SMEM loop (through ``occ``, as ``run_se_batched``) and shared BSW
+    blocks — then the whole batch's mate-rescue work pooled on
+    ``opt.device`` (``rescue_batched``).  Returns (sam_lines, stats)."""
+    n = len(reads1)
+    both = np.concatenate([reads1, reads2], axis=0)
+    res, s = run_se_batched(idx, both, opt, occ=occ)
+    res1, res2 = res[:n], res[n:]
+    lines, pstats = pair_pipeline(idx, reads1, reads2, res1, res2, opt,
+                                  pe_opt, rescue=rescue_batched, names=names)
+    stats = obs.Snapshot(s)
+    stats.update(pstats)
     return lines, stats

@@ -1,5 +1,6 @@
 """Mate rescue (mem_matesw port): the scalar baseline and the batched
-driver.
+driver, each whole in one function (``rescue_scalar``, ``rescue_batched``:
+plan, extend and merge).
 
 When one mate is unmapped (or has no alignment consistent with the
 estimated insert-size distribution), bwa scans the window implied by its
@@ -11,7 +12,9 @@ the paper's inter-task scheme (§5.3.1): every left/right extension of
 every rescue task across the WHOLE batch is collected, length-sorted and
 dispatched through the pipeline's ``BatchedBSWExecutor`` (so through the
 bsw kernel on the pipeline's device), then the per-task decision logic
-is replayed from the result table.
+is replayed from the result table.  ``rescue_batched`` also scans every
+window in one ``kernels.diagseed`` call and finalizes the accepted mates
+in one ``kernels.galign`` call, both on ``opt.device``.
 
 Task construction is shared with the reference: the mate read (as-is,
 never re-complemented — the doubled reference's reverse half covers the
@@ -29,6 +32,7 @@ tasks), so that the batched path scans a batch's windows in one
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -36,9 +40,11 @@ from .. import obs
 from ..core.bsw import BSWParams
 from ..core.chain import Chain
 from ..core.contig import block_bounds, same_contig
-from ..core.pipeline import (BatchedBSWExecutor, _bsw_immediate,
-                             align_regions, apply_cigar, approx_mapq,
-                             chain2aln, host_align)
+from ..core.pipeline import (BatchedBSWExecutor, align_regions, apply_cigar,
+                             approx_mapq, bsw_immediate, chain2aln,
+                             host_align)
+from ..kernels import diagseed as kdiagseed
+from ..kernels import galign as kgalign
 from .pestat import PairStat, infer_dir
 
 
@@ -155,8 +161,9 @@ def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
     Three passes: the candidate windows of every pair, end, anchor and
     orientation; one ``seed_fn(queries, S, wlos, whis, min_len)`` call for
     all of them, (C, 3) rows (d, j_end, len) of each window's anchor seed
-    (``host_diag_seeds``, window by window on the host, or the batched
-    ``core.pipeline.diagseed_batch_fn``); the tasks, in candidate order.
+    (``host_diag_seeds``, window by window on the host, or
+    ``kernels.diagseed.diag_seed_batch`` on a device); the tasks, in
+    candidate order.
     """
     S, l_pac = idx.seq, idx.n_ref
     cands: list[tuple] = []      # (pid, other end, r, wlo, whi)
@@ -214,7 +221,7 @@ def plan_rescues(results: tuple, reads: tuple, pes: list[PairStat],
 
 def run_rescues_scalar(tasks: list[RescueTask], idx, p: BSWParams):
     """Baseline: each rescue extension runs the scalar oracle inline."""
-    fn = _bsw_immediate(p)
+    fn = bsw_immediate(p)
     n_ext = [0]
 
     def counting(side, seed_id, rnd, q, t, h0, w):
@@ -230,12 +237,12 @@ def run_rescues_scalar(tasks: list[RescueTask], idx, p: BSWParams):
 
 
 def run_rescues_batched(tasks: list[RescueTask], idx, p: BSWParams, *,
-                        batch_fn, block: int = 256, sort: bool = True):
+                        device, block: int = 256, sort: bool = True):
     """All rescue extensions across the batch pooled, length-sorted and
-    dispatched through the batched BSW executor, then decisions replayed
-    per task — same structure as the main pipeline's Stage 4
-    (``batch_fn`` is the same per-block kernel, ``bsw_batch_fn``)."""
-    execu = BatchedBSWExecutor(p, block=block, sort=sort, batch_fn=batch_fn)
+    dispatched through the batched BSW executor on ``device``, then
+    decisions replayed per task — same structure as the main pipeline's
+    Stage 4, through the same bsw kernel."""
+    execu = BatchedBSWExecutor(p, device=device, block=block, sort=sort)
     execu.plan_and_run([(ti, t.chain, t.query, idx)
                         for ti, t in enumerate(tasks)])
     outs = [chain2aln(t.chain, t.query, idx, p, execu.executor(ti))
@@ -259,9 +266,9 @@ def merge_rescues(results: tuple, tasks: list[RescueTask], outs: list,
 
     The accepted mates are collected first and all of their CIGARs come
     from one call of ``align`` (``core.pipeline.host_align``, or
-    ``galign_batch_fn``'s kernel): the dedup reads only ``rb`` and
-    ``re``, which finalize does not change, so the mates accepted are
-    those that finalizing each on acceptance accepts.
+    ``kernels.galign.global_align_batch`` on a device): the dedup reads
+    only ``rb`` and ``re``, which finalize does not change, so the mates
+    accepted are those that finalizing each on acceptance accepts.
     """
     S, l_pac = idx.seq, idx.n_ref
     accepted = []
@@ -282,3 +289,43 @@ def merge_rescues(results: tuple, tasks: list[RescueTask], outs: list,
         apply_cigar(a, q, S, l_pac, cig)
         a.mapq = approx_mapq(a, p, min_seed_len)
     return len(accepted)
+
+
+def rescue_scalar(results: tuple, reads: tuple, pes: list[PairStat], idx,
+                  opt, peopt: PEOptions):
+    """Mate rescue as the original organisation runs it, on the host:
+    each window scanned by ``best_diag_seed``, each extension by the
+    scalar oracle, each accepted mate finalized by
+    ``global_align_cigar``.  ``results`` are extended in place.  Returns
+    (the number of accepted rescues, stats)."""
+    with obs.span("pe_rescue.plan"):
+        tasks = plan_rescues(results, reads, pes, idx, peopt)
+    with obs.span("pe_rescue.extend"):
+        outs, stats = run_rescues_scalar(tasks, idx, opt.bsw)
+    with obs.span("pe_rescue.merge"):
+        n = merge_rescues(results, tasks, outs, idx, opt.bsw,
+                          opt.mem.min_seed_len, peopt)
+    return n, stats
+
+
+def rescue_batched(results: tuple, reads: tuple, pes: list[PairStat], idx,
+                   opt, peopt: PEOptions):
+    """``rescue_scalar``'s result, the batch's work pooled on
+    ``opt.device``: every window in one ``diag_seed_batch`` call, the
+    extensions through ``run_rescues_batched`` and the accepted mates in
+    one ``global_align_batch`` call."""
+    dev = opt.device
+    with obs.span("pe_rescue.plan"):
+        tasks = plan_rescues(results, reads, pes, idx, peopt,
+                             seed_fn=functools.partial(
+                                 kdiagseed.diag_seed_batch, device=dev))
+    with obs.span("pe_rescue.extend"):
+        outs, stats = run_rescues_batched(tasks, idx, opt.bsw, device=dev,
+                                          block=opt.bsw_block,
+                                          sort=opt.bsw_sort)
+    with obs.span("pe_rescue.merge"):
+        n = merge_rescues(results, tasks, outs, idx, opt.bsw,
+                          opt.mem.min_seed_len, peopt,
+                          align=functools.partial(
+                              kgalign.global_align_batch, device=dev))
+    return n, stats

@@ -46,7 +46,11 @@ from repro_torch.core.contig import build_contig_index
 from repro_torch.data import (make_reference, simulate_pairs, simulate_reads,
                               simulate_reads_multi, simulate_reference,
                               write_fasta, write_fastq)
-from repro_torch.kernels.fmocc import make_occ_fn
+from repro_torch.kernels import bsw as kbsw
+from repro_torch.kernels import diagseed as kdiagseed
+from repro_torch.kernels import engine as kengine
+from repro_torch.kernels import galign as kgalign
+from repro_torch.kernels.fmocc import OccConfig
 from repro_torch.options import ENGINE_BASELINE, AlignOptions
 
 torch.set_num_threads(1)
@@ -98,7 +102,7 @@ def test_collect_and_brute_smems_equal_reference(smem_world):
     for layout in ("eta32", "eta128"):
         assert tsm.collect_smems_batch(
             tidx, reads, lens, opt,
-            occ_fn=make_occ_fn(layout, 256, "cpu")) == got
+            occ=OccConfig(layout, 256, "cpu")) == got
 
 
 # -------------------------------- SAL --------------------------------
@@ -225,7 +229,7 @@ def test_run_rescues_scalar_equals_reference(pe_world):
     assert st == rst and st["rescue_bsw"] > 0
     # the scalar and the batched drivers rescue alike
     bouts, bst = pe.run_rescues_batched(copy.deepcopy(tasks), idx, opt.bsw,
-                                        batch_fn=pipeline.bsw_batch_fn(opt))
+                                        device=opt.device)
     assert fields(bouts) == fields(outs)
     assert bst["rescue_bsw"] == st["rescue_bsw"]
 
@@ -271,18 +275,26 @@ def test_pe_multicontig_identity():
                                  RBASELINE).align_pairs(r1, r2).sam()
 
 
-def test_baseline_touches_no_kernel_path(se_world, monkeypatch):
+def test_baseline_touches_no_kernel_path(se_world, pe_world, monkeypatch):
     """The baseline runs on the host whatever the device: it asks for no
-    occ or BSW kernel and no device view of the index."""
+    occ configuration, no kernel entry and no device view of the
+    index, single-end or paired."""
     _, reads, idx = se_world
+    _, r1, r2, pidx, _ = pe_world
     want = Aligner(idx, BASELINE).align(reads[:3]).sam()
+    want_pe = Aligner(pidx, BASELINE).align_pairs(r1[:8], r2[:8]).sam()
 
     def refuse(*a, **k):
         raise AssertionError("the baseline reached a kernel path")
-    for name in ("occ_fn_for", "bsw_batch_fn"):
-        monkeypatch.setattr(pipeline, name, refuse)
+    monkeypatch.setattr(kengine, "attach_occ_config", refuse)
+    monkeypatch.setattr(tsm, "ext_round", refuse)
+    monkeypatch.setattr(kbsw, "bsw_extend_kernel", refuse)
+    monkeypatch.setattr(kgalign, "global_align_batch", refuse)
+    monkeypatch.setattr(kdiagseed, "diag_seed_batch", refuse)
     monkeypatch.setattr(tfm.FMIndex, "device", refuse)
     assert Aligner(idx, BASELINE).align(reads[:3]).sam() == want
+    assert Aligner(pidx, BASELINE).align_pairs(r1[:8], r2[:8]).sam() == \
+        want_pe
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,7 @@ from repro_torch.core import fmindex as tfm
 from repro_torch.core import smem as tsm
 from repro_torch.data import make_reference, simulate_reads
 from repro_torch.kernels.engine import sweep_entries
-from repro_torch.kernels.fmocc import ext_round, make_occ_fn
+from repro_torch.kernels.fmocc import OccConfig, ext_round
 from repro_torch.kernels.fmocc.ref import ext_round_ref
 
 torch.set_num_threads(1)
@@ -108,7 +108,7 @@ def test_compacted_round_equals_padded_round(pair, layout, which):
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
         got = tsm._ext_round(tidx, which, host,
-                             make_occ_fn(layout, 256, "cpu"))
+                             OccConfig(layout, 256, "cpu"))
     n = int(live.sum())
     assert got.dtype == np.int32 and got.shape == (3, n)
     for g, w in zip(got, plain.numpy()):
@@ -124,7 +124,7 @@ def test_round_without_live_entries_sends_nothing(pair):
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
         got = tsm._ext_round(tidx, "fwd", np.zeros((4, 0), np.int32),
-                             make_occ_fn("eta32", 256, "cpu"))
+                             OccConfig("eta32", 256, "cpu"))
     assert got.shape == (3, 0)
     snap = reg.snapshot()
     assert snap["smem_rounds"] == 1
@@ -150,14 +150,14 @@ def test_smem_sends_only_live_entries(world, layout, monkeypatch):
     sent = []
     real = tsm._ext_round
 
-    def counting(idx, which, host, occ_fn):
+    def counting(idx, which, host, occ):
         sent.append(host.shape[1])
-        return real(idx, which, host, occ_fn)
+        return real(idx, which, host, occ)
     monkeypatch.setattr(tsm, "_ext_round", counting)
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
         got = tsm.collect_smems_batch(tidx, reads, lens, tsm.MemOptions(),
-                                      occ_fn=make_occ_fn(layout, 256, "cpu"))
+                                      occ=OccConfig(layout, 256, "cpu"))
     assert got == rsm.collect_smems_batch(ridx, reads, lens, rsm.MemOptions())
     snap = reg.snapshot()
     assert snap["smem_rounds"] == len(sent) and min(sent) > 0

@@ -3,6 +3,8 @@ carried across from the JAX package, and the plain occ / extension
 functions against the reference's jnp, numpy and Pallas (interpret)
 versions.  Every value is an integer, so equality is exact."""
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -10,9 +12,12 @@ import torch
 
 from repro.core import fmindex as rfm
 from repro.kernels.fmocc import make_occ_fn as pallas_occ_fn
+from repro_torch.core import contig as tcontig
 from repro_torch.core import fmindex as tfm
+from repro_torch.core import smem as tsm
 from repro_torch.data import make_reference
-from repro_torch.kernels.fmocc import make_occ_fn, occ
+from repro_torch.kernels.engine import sweep_occ_configs
+from repro_torch.kernels.fmocc import DEFAULT_CANDIDATE, OccConfig, occ
 
 torch.set_num_threads(1)
 
@@ -54,7 +59,7 @@ def test_build_index_arrays_equal(pair):
 
 def test_index_from_reference(pair):
     ridx, _ = pair
-    got = tfm.index_from_reference(
+    got = tcontig.index_from_reference(
         {k: getattr(ridx, k) for k in rfm.PERSIST_ARRAYS},
         {k: getattr(ridx, k) for k in rfm.PERSIST_SCALARS})
     for k in tfm.PERSIST_ARRAYS:
@@ -68,7 +73,7 @@ def test_index_from_reference(pair):
     assert np.array_equal(fm_t.sa[rows].numpy(),
                           np.asarray(fm_r.sa)[rows.numpy()])
     with pytest.raises(ValueError, match="missing"):
-        tfm.index_from_reference({}, {})
+        tcontig.index_from_reference({}, {})
 
 
 def test_device_view_cached_and_typed(pair):
@@ -124,16 +129,24 @@ def test_extension_equals_reference(pair, layout, which):
         ridx, k, l, s, c)
     fn = tfm.backward_ext_v if which == "bwd" else tfm.forward_ext_v
     got = fn(tidx.device(CPU), *(torch.from_numpy(a) for a in (k, l, s, c)),
-             occ_fn=make_occ_fn(layout, 256, "cpu"))
+             occ_fn=functools.partial(occ, layout=layout))
     for g, w, wn in zip(got, want, want_np):
         assert np.array_equal(g.numpy(), np.asarray(w))
         assert np.array_equal(g.numpy(), wn)
 
 
-def test_occ_fn_carries_device_and_is_stable():
-    f = make_occ_fn("eta128", 512, "cpu")
-    assert f is make_occ_fn("eta128", 512, torch.device("cpu"))
-    assert (f.layout, f.block, f.device) == ("eta128", 512, CPU)
+def test_occ_fn_carries_device_and_is_stable(pair):
+    # the configuration SMEM's rounds read: a frozen value, the default
+    # the one the sweep gives where there is no kernel to time
+    f = OccConfig("eta128", 512, "cpu")
+    assert f == OccConfig("eta128", 512, "cpu") and hash(f) == hash(
+        OccConfig("eta128", 512, "cpu"))
+    assert (f.layout, f.block, f.device) == ("eta128", 512, "cpu")
+    assert sweep_occ_configs(None, CPU) == OccConfig(*DEFAULT_CANDIDATE,
+                                                     "cpu")
+    with pytest.raises(ValueError, match="unknown occ layout"):
+        tsm._ext_round(pair[1], "bwd", np.zeros((4, 1), np.int32),
+                       OccConfig("eta64", 256, "cpu"))
     with pytest.raises(ValueError, match="unknown occ layout"):
         occ(None, torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), layout="eta64")

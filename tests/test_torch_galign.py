@@ -175,7 +175,7 @@ def test_off_band_paths_and_the_corner_branch():
 
 def recorded_tasks(monkeypatch, run):
     """``run()``'s finalize tasks, call by call, from the galign entry
-    the pipeline's ``galign_batch_fn`` looks up."""
+    the pipeline looks up on ``kernels.galign`` at each call."""
     calls = []
     real = galign.global_align_batch
 

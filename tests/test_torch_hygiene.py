@@ -10,9 +10,14 @@
   repro_torch.launch.dryrun``) raise or exit non-zero at their default
   device instead of running on the CPU;
 * a kernel wrapper given a tensor on any device other than the CPU or a
-  CUDA device raises instead of running its plain version.
+  CUDA device raises instead of running its plain version;
+* the layers import one way (read from the sources, nothing imported):
+  ``core`` and ``pe`` defer no import, ``core`` imports nothing of
+  ``pe``, ``api`` or ``kernels.engine``, and each kernel wrapper package
+  imports no driver, no engine and no other wrapper.
 """
 
+import ast
 import json
 import pathlib
 import subprocess
@@ -196,3 +201,64 @@ def test_wrappers_refuse_meta_tensors(tiny):
         bsw_extend_kernel([np.zeros(3, np.uint8)], [np.zeros(3, np.uint8)],
                           [5], BSWParams(), device="meta")
     assert launch_counts() == before
+
+
+WRAPPERS = ("fmocc", "bsw", "galign", "diagseed")
+
+
+def imports_of(path: pathlib.Path):
+    """(absolute module, whether inside a function) of every import in
+    ``path``; ``from a import b`` gives both ``a`` and ``a.b``, since
+    ``b`` may be a module."""
+    rel = path.relative_to(PKG.parent).with_suffix("")
+    pkg = list(rel.parts[:-1])
+    out = []
+
+    def walk(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef))
+            if isinstance(child, ast.Import):
+                out.extend((a.name, fn, False) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                base = pkg[:len(pkg) - child.level + 1] if child.level \
+                    else []
+                mod = ".".join(base + ([child.module] if child.module
+                                       else []))
+                out.append((mod, fn, child.level > 0))
+                out.extend((f"{mod}.{a.name}", fn, child.level > 0)
+                           for a in child.names)
+            walk(child, fn)
+    walk(ast.parse(path.read_text()), False)
+    return out
+
+
+def under(mod: str, *prefixes: str) -> bool:
+    return any(mod == p or mod.startswith(p + ".") for p in prefixes)
+
+
+def test_layers_import_one_way():
+    bad = []
+    for sub in ("core", "pe", "kernels"):
+        for path in sorted((PKG / sub).rglob("*.py")):
+            name = str(path.relative_to(PKG))
+            for mod, in_fn, relative in imports_of(path):
+                if sub in ("core", "pe") and in_fn and (
+                        relative or under(mod, "repro_torch")):
+                    bad.append(f"{name}: deferred import of {mod}")
+                if sub == "core" and under(mod, "repro_torch.pe",
+                                           "repro_torch.api",
+                                           "repro_torch.kernels.engine"):
+                    bad.append(f"{name}: core imports {mod}")
+                parts = path.relative_to(PKG).parts
+                if sub == "kernels" and len(parts) > 2 and \
+                        parts[1] in WRAPPERS:
+                    others = [f"repro_torch.kernels.{w}" for w in WRAPPERS
+                              if w != parts[1]]
+                    if under(mod, "repro_torch.core.smem",
+                             "repro_torch.core.sal",
+                             "repro_torch.core.pipeline", "repro_torch.pe",
+                             "repro_torch.api", "repro_torch.kernels.engine",
+                             *others):
+                        bad.append(f"{name}: wrapper imports {mod}")
+    assert bad == []

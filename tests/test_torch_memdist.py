@@ -40,7 +40,6 @@ from repro_torch.ft.straggler import StragglerEvent
 from repro_torch.io.store import load_index
 from repro_torch.io.stream import check_chunking, open_batches, plan_chunks
 from repro_torch.kernels import build, launch_counts, reset_launch_counts
-from repro_torch.kernels.bsw import ops as bsw_ops
 
 torch.set_num_threads(1)
 
@@ -487,7 +486,7 @@ def test_launch_counters_lose_no_count_under_threads():
     def bump():
         start.wait(timeout=30)
         for _ in range(n_bumps):
-            build.count_launch(bsw_ops.LAUNCHES, "bsw")
+            build.count_launch("bsw")
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

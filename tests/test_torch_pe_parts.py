@@ -7,6 +7,7 @@ exact equality."""
 
 import copy
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -23,6 +24,8 @@ from repro_torch import obs, pe
 from repro_torch.api import Aligner
 from repro_torch.core import pipeline
 from repro_torch.core.contig import build_contig_index
+from repro_torch.kernels import bsw as kbsw
+from repro_torch.kernels.diagseed import diag_seed_batch
 from repro_torch.data import make_reference, simulate_pairs
 
 torch.set_num_threads(1)
@@ -85,8 +88,7 @@ def test_rescue_matches_reference(world, se_results):
             == [(t.pair_id, t.end, t.r, t.chain.seeds) for t in rtasks])
     assert all(np.array_equal(a.query, b.query)
                for a, b in zip(tasks, rtasks))
-    outs, st = pe.run_rescues_batched(tasks, idx, opt.bsw,
-                                      batch_fn=pipeline.bsw_batch_fn(opt),
+    outs, st = pe.run_rescues_batched(tasks, idx, opt.bsw, device=opt.device,
                                       block=opt.bsw_block)
     routs, rst = rpe.run_rescues_batched(rtasks, ridx, ropt.bsw,
                                          block=ropt.bsw_block,
@@ -105,14 +107,15 @@ def test_rescue_matches_reference(world, se_results):
 @pytest.mark.parametrize("batched", [False, True])
 def test_plan_rescues_seed_fn_matches_reference(world, se_results, batched):
     """The plan with the default host ``seed_fn`` and with the batched one
-    (``diagseed_batch_fn``, its plain version on the CPU): the reference's
+    (``kernels.diagseed.diag_seed_batch``, its plain version on the CPU):
+    the reference's
     tasks, seeds and queries, and its ``rescue_window_bp`` histogram."""
     _, r1, r2, idx, ridx = world
     t1, t2, q1, q2 = se_results
     pes = pe.estimate_pestat(t1, t2, idx)
     rpes = rpe.estimate_pestat(q1, q2, ridx)
-    kw = dict(seed_fn=pipeline.diagseed_batch_fn(
-        pipeline.PipelineOptions(device="cpu"))) if batched else {}
+    kw = dict(seed_fn=functools.partial(diag_seed_batch, device="cpu")
+              ) if batched else {}
     reg, rreg = obs.MetricsRegistry(), robs.MetricsRegistry()
     with obs.activate(reg):
         tasks = pe.plan_rescues((t1, t2), (r1, r2), pes, idx, pe.PEOptions(),
@@ -132,12 +135,13 @@ def test_plan_rescues_seed_fn_matches_reference(world, se_results, batched):
     assert snap["rescue_windows"] > len(tasks)
 
 
-def test_rescue_without_tasks_dispatches_nothing(world):
+def test_rescue_without_tasks_dispatches_nothing(world, monkeypatch):
     _, _, _, idx, _ = world
     calls = []
+    monkeypatch.setattr(kbsw, "bsw_extend_kernel",
+                        lambda *a, **k: calls.append(a))
     outs, st = pe.run_rescues_batched(
-        [], idx, pipeline.PipelineOptions().bsw,
-        batch_fn=lambda *a, **k: calls.append(a))
+        [], idx, pipeline.PipelineOptions().bsw, device="cpu")
     assert outs == [] and calls == []
     assert st == dict(rescue_tasks=0, rescue_bsw=0, rescue_cells_useful=0,
                       rescue_cells_total=0)

@@ -19,7 +19,7 @@ from repro_torch import obs
 from repro_torch.core import fmindex as tfm
 from repro_torch.core import smem as tsm
 from repro_torch.data import make_reference, simulate_reads
-from repro_torch.kernels.fmocc import make_occ_fn
+from repro_torch.kernels.fmocc import OccConfig
 
 torch.set_num_threads(1)
 
@@ -94,7 +94,7 @@ def test_rounds_equal_the_dense_loops(genome, layout, read_len, monkeypatch):
     bidx = bfm.build_index(ref)
     reads, lens = batch_of_reads(ref, read_len, seed=2)
     t_read, t_x, t_mi = tasks(reads, lens, seed=3)
-    occ_fn = make_occ_fn(layout, 256, "cpu")
+    occ = OccConfig(layout, 256, "cpu")
     opt = tsm.MemOptions()
     mine, dense = [], []
     monkeypatch.setattr(tsm, "ext_round", record(mine)(tsm.ext_round))
@@ -102,12 +102,12 @@ def test_rounds_equal_the_dense_loops(genome, layout, read_len, monkeypatch):
                         record(dense)(bsm.ext_round_ref))
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
-        got = tsm.collect_smems_batch(tidx, reads, lens, opt, occ_fn=occ_fn)
+        got = tsm.collect_smems_batch(tidx, reads, lens, opt, occ=occ)
         tb = tsm.smem1_batch(tidx, reads, lens, t_read, t_x, t_mi,
-                             occ_fn=occ_fn)
+                             occ=occ)
     want = bsm.collect_smems_batch(bidx, reads, lens, bsm.MemOptions(),
-                                   occ_fn=occ_fn)
-    bb = bsm.smem1_batch(bidx, reads, lens, t_read, t_x, t_mi, occ_fn=occ_fn)
+                                   occ_fn=occ)
+    bb = bsm.smem1_batch(bidx, reads, lens, t_read, t_x, t_mi, occ_fn=occ)
     assert got == want
     assert np.array_equal(tb.n, bb.n) and np.array_equal(tb.ret, bb.ret)
     # the same rounds, each with the same entries in the same order
@@ -141,11 +141,11 @@ def test_output_equals_the_oracles(genome, layout, read_len, seed):
     ref, tidx = genome
     ridx = rfm.build_index(ref)
     reads, lens = batch_of_reads(ref, read_len, seed)
-    occ_fn = make_occ_fn(layout, 256, "cpu")
+    occ = OccConfig(layout, 256, "cpu")
     opt = tsm.MemOptions()
     ropt = rsm.MemOptions()
 
-    got = tsm.collect_smems_batch(tidx, reads, lens, opt, occ_fn=occ_fn)
+    got = tsm.collect_smems_batch(tidx, reads, lens, opt, occ=occ)
     assert got == rsm.collect_smems_batch(ridx, reads, lens, ropt)
     assert got == [tsm.collect_smems(tidx, reads[r, :lens[r]], opt)
                    for r in range(len(reads))]
@@ -156,8 +156,7 @@ def test_output_equals_the_oracles(genome, layout, read_len, seed):
         [got[9][0][:3] + (0, 26)] * 2 and got[9][0][2] == 5
 
     t_read, t_x, t_mi = tasks(reads, lens, seed + 1)
-    tb = tsm.smem1_batch(tidx, reads, lens, t_read, t_x, t_mi,
-                         occ_fn=occ_fn)
+    tb = tsm.smem1_batch(tidx, reads, lens, t_read, t_x, t_mi, occ=occ)
     rb = rsm.smem1_batch(ridx, reads, lens, t_read, t_x, t_mi)
     per_task = padded(tb, len(t_read))
     assert np.array_equal(tb.n, rb.n) and np.array_equal(tb.ret, rb.ret)
@@ -172,7 +171,7 @@ def test_output_equals_the_oracles(genome, layout, read_len, seed):
 
     out, has, ret = tsm.seed_strategy1_batch(
         tidx, reads, lens, t_read, t_x, opt.min_seed_len, opt.max_mem_intv,
-        occ_fn=occ_fn)
+        occ=occ)
     rout, rhas, rret = rsm.seed_strategy1_batch(
         ridx, reads, lens, t_read, t_x, opt.min_seed_len, opt.max_mem_intv)
     assert np.array_equal(has, rhas) and np.array_equal(ret, rret)

@@ -14,7 +14,7 @@ from repro_torch.core import fmindex as tfm
 from repro_torch.core import sal as tsal
 from repro_torch.core import smem as tsm
 from repro_torch.data import make_reference, simulate_reads
-from repro_torch.kernels.fmocc import make_occ_fn
+from repro_torch.kernels.fmocc import OccConfig
 
 torch.set_num_threads(1)
 
@@ -45,7 +45,7 @@ def test_collect_smems_batch_equals_reference(world, ref_mems, layout):
     reg = obs.MetricsRegistry()
     with obs.activate(reg):
         got = tsm.collect_smems_batch(tidx, reads, lens, tsm.MemOptions(),
-                                      occ_fn=make_occ_fn(layout, 256, "cpu"))
+                                      occ=OccConfig(layout, 256, "cpu"))
     assert got == ref_mems
     # and per read, the scalar oracle of the reference
     opt = rsm.MemOptions()
@@ -57,8 +57,8 @@ def test_collect_smems_batch_equals_reference(world, ref_mems, layout):
 
 
 def test_collect_smems_batch_needs_a_device_occ_fn(world):
-    # no host backend to fall back on: the caller names the occ callable,
-    # and with it the device the rounds run on
+    # no host backend to fall back on: the caller names the round
+    # kernel's configuration, and with it the device the rounds run on
     _, tidx, reads = world
     lens = np.full(len(reads), reads.shape[1], np.int64)
     with pytest.raises(TypeError):
