@@ -22,23 +22,25 @@ Phases (each prints one line, any failure raises and exits non-zero):
    synthetic entries plus edge entries (k-1 and k+s-1 at -1, 0, N-2, N-1,
    every bucket edge +-1 around ``primary``; s = 0; c in 0..4) and on the
    compacted entries of every SMEM round of the device stages run on 512
-   reads; BSW on every block of real extension tasks those reads
-   dispatch and on synthetic blocks: band width 1, z-drop triggered,
-   query lengths on strip edges (31-33, 63-65, 127-129 at qmax 160) and
-   long queries (qmax 256, tmax 320).  Times side by side: each kernel's
-   device time (torch.profiler, mean of 20 calls; the round kernel warm,
-   as the main path finds the index in L2, and cold, with L2 flushed
+   reads; BSW on every launch of real extension tasks those reads make (one
+   a wave of tasks; the bsw entry's own result of each, staged and laid
+   out on the card, too) and on synthetic blocks: band width 1, z-drop
+   triggered, query lengths on strip edges (31-33, 63-65, 127-129 at qmax
+   160) and long queries (qmax 256, tmax 320).  Times side by side: each
+   kernel's device time (torch.profiler, mean of 20 calls; the round kernel
+   warm, as the main path finds the index in L2, and cold, with L2 flushed
    between launches by writing a 256-MB buffer (on the synthetic entries
-   also by reading it), on the synthetic entries and on the largest and
-   the median real round; BSW on the first 4 real blocks, and on their tasks
-   repacked into one launch), its wrapper call and its plain version
-   (CUDA events, median of 20); each kernel's registers (ptxas) and the
-   BSW kernel's shared memory; the sweep's device time per launch of each
-   candidate; and the card's busy share while the device stages (SMEM,
-   SAL, chaining, BSW) run on the 512 reads under the profiler.  Then
-   ``bsw_rescue_exact``: every BSW block of PE mate rescue on 256 simulated
-   pairs (insert N(300, 30), 15% of the mates rescue-only), held exactly
-   against the plain version and timed beside its bound.  Then
+   also by reading it), on the synthetic entries and on the largest and the
+   median real round; BSW on the real launches, one at a time and their
+   tasks repacked into one launch), its wrapper call, the bsw entry's call
+   and its plain version (CUDA events, median of 20); each kernel's registers (ptxas) and the BSW
+   kernel's shared memory; the sweep's device time per launch of each
+   candidate; and the card's busy share while the device stages (SMEM, SAL,
+   chaining, BSW) run on the 512 reads under the profiler.  Then
+   ``bsw_rescue_exact``: every BSW launch of PE mate rescue on 256
+   simulated pairs (insert N(300, 30), 15% of the mates rescue-only), and
+   the bsw entry's own result of it, held exactly against the plain
+   version and timed beside its bound.  Then
    ``galign_exact``: finalize's banded global alignment kernel on every
    region that finalize emits for the 512 reads (one launch, as the main
    path makes it), for both ends of the 256 pairs and for their rescued
@@ -336,7 +338,9 @@ LM_MESH_STEPS = 3
 EXT_ENTRIES = 1 << 17     # synthetic round entries, before the edge entries
 #: written between two launches of a cold timing: more than twice the L2
 L2_FLUSH_BYTES = 256 << 20
-BSW_REAL_BLOCKS = 4
+#: real BSW launches the 512 reads must make: the left and the right
+#: round-0 waves (the band-doubled retries may be empty)
+BSW_REAL_BLOCKS = 2
 TIMING_REPS = 20
 PROFILER_ATTEMPTS = 3
 
@@ -617,31 +621,54 @@ def device_stages(idx, reads, dev):
             opt.chain, edges), opt.chain)
         jobs.extend(((r, ci), ch, reads[r], idx)
                     for ci, ch in enumerate(chains))
-    blocks = []
-    with recording_bsw(blocks):
-        BatchedBSWExecutor(opt.bsw, device=dev,
-                           block=opt.bsw_block).plan_and_run(jobs)
+    blocks, entry = [], []
+    with recording_bsw(blocks, entry):
+        BatchedBSWExecutor(opt.bsw, device=dev).plan_and_run(jobs)
     if len(blocks) < BSW_REAL_BLOCKS:
-        raise AssertionError(f"only {len(blocks)} BSW blocks in the sample")
-    return rounds, blocks
+        raise AssertionError(f"only {len(blocks)} BSW launches in the "
+                             f"sample")
+    return rounds, (blocks, entry)
 
 
 @contextlib.contextmanager
-def recording_bsw(blocks: list):
-    """Every call of the bsw entry that the BSW executor looks up: each
-    block's packed arrays appended to ``blocks`` before it launches the
-    kernel."""
+def recording_bsw(blocks: list, entry: list):
+    """Every call of the bsw entry that the BSW executor looks up: its
+    tasks packed on the host (``pack_tasks``) appended to ``blocks``
+    before it launches the kernel, and to ``entry`` (the entry's own
+    result, a call that repeats it), so that what the entry stages and
+    lays out on the card is held against the plain version on the
+    host-packed arrays (``check_entry``)."""
     real = bsw_pkg.bsw_extend_kernel
 
-    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None, *,
-               device):
+    def record(queries, targets, h0s, p, ws=None, qmax=None, tmax=None,
+               **kw):
         blocks.append(pack_tasks(queries, targets, h0s, p, ws, qmax, tmax))
-        return real(queries, targets, h0s, p, ws, qmax, tmax, device=device)
+        out = real(queries, targets, h0s, p, ws, qmax, tmax, **kw)
+        entry.append((out, functools.partial(real, queries, targets, h0s, p,
+                                             ws, qmax, tmax, **kw)))
+        return out
     bsw_pkg.bsw_extend_kernel = record
     try:
         yield blocks
     finally:
         bsw_pkg.bsw_extend_kernel = real
+
+
+def check_entry(blocks: list, entry: list, p: BSWParams, dev,
+                what: str) -> tuple[int, float]:
+    """Each recorded entry call's result (``recording_bsw``) held exactly
+    against the plain version on its host-packed block; returns (the
+    largest difference, the entry's median time a call in ms: staging,
+    the copy, the layout on the card, the launch and the readback)."""
+    err = 0
+    for j, (a, (got, _)) in enumerate(zip(blocks, entry)):
+        want = bsw_ref(*(torch.from_numpy(x).to(dev) for x in a), p).cpu()
+        got = torch.from_numpy(got)
+        err = max(err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"the bsw entry differs from the plain "
+                                 f"version on {what} launch {j}")
+    return err, cuda_ms(lambda: [c() for _, c in entry]) / len(entry)
 
 
 def related(rng, qlens, tlens):
@@ -723,11 +750,13 @@ def ptxas_resources(*names: str) -> str:
     return " | ".join(out) or "not_built_in_this_run"
 
 
-def check_bsw(blocks: dict, dev) -> dict:
+def check_bsw(blocks: dict, entry: list, dev) -> dict:
     """``blocks``: name -> (packed block, BSWParams), each held exactly
-    against the plain version; the first ``BSW_REAL_BLOCKS`` "real*"
-    blocks are timed and bounded, one launch at a time and repacked into
-    one launch."""
+    against the plain version; the "real*" blocks (the executor's
+    launches, in order) are timed and bounded, one launch at a time and
+    repacked into one launch, and the entry's own results of them
+    (``entry``, from ``recording_bsw``) held against the plain version
+    and timed."""
     out = {}
     dev_blocks = {k: ([torch.from_numpy(a).to(dev) for a in v], bp)
                   for k, (v, bp) in blocks.items()}
@@ -740,13 +769,17 @@ def check_bsw(blocks: dict, dev) -> dict:
             raise AssertionError(f"bsw differs from its plain version on "
                                  f"block {name}")
     real_names = [k for k in dev_blocks if k.startswith("real")]
+    p = BSWParams()
+    entry_err, entry_ms = check_entry([blocks[k][0] for k in real_names],
+                                      entry, p, dev, "real")
+    err = max(err, entry_err)
     phase("bsw_exact", real_blocks=len(real_names),
           real_tasks=sum(dev_blocks[k][0][0].shape[0] for k in real_names),
+          entry_calls=len(entry),
           synthetic=",".join(k for k in dev_blocks if k not in real_names),
           max_abs_err=err)
-    timed = real_names[:BSW_REAL_BLOCKS]
+    timed = real_names
     real = [dev_blocks[k][0] for k in timed]
-    p = BSWParams()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     geo = {k: launch_geometry(a[0].shape[0], a[0].shape[1], sms)
            for k, (a, _) in dev_blocks.items()}
@@ -770,7 +803,7 @@ def check_bsw(blocks: dict, dev) -> dict:
           geometry=json.dumps(launch_geometry(*one[0].shape, sms),
                               separators=(",", ":")),
           kernel_ms=f"{one_ms:.4f}",
-          four_launches_ms=f"{ms * len(real):.4f}")
+          separate_launches_ms=f"{ms * len(real):.4f}")
     cells, rows = bsw_cells(real, p)
     bound, by = bsw_bound_ms(real, cells)
     phase("bsw", blocks=",".join(timed), tasks_real=sum(
@@ -778,6 +811,7 @@ def check_bsw(blocks: dict, dev) -> dict:
         cells_per_row=f"{cells / max(rows, 1):.1f}",
         tmax_real=",".join(str(a[1].shape[1]) for a in real), max_abs_err=err,
         kernel_ms_per_block=f"{ms:.4f}", call_ms_per_block=f"{call:.4f}",
+        entry_ms_per_block=f"{entry_ms:.4f}",
         plain_ms_per_block=f"{plain:.4f}", bound_ms_per_block=f"{bound:.6f}")
     out["bsw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                       bound_by=by)
@@ -837,29 +871,30 @@ def rescue_blocks(idx, reads1, reads2, dev):
     if len(seed_calls) != 1:
         raise AssertionError(f"the rescue plan made {len(seed_calls)} "
                              f"seed_fn calls, not one")
-    blocks = []
-    with recording_bsw(blocks):
-        outs, stats = pe.run_rescues_batched(tasks, idx, opt.bsw, device=dev,
-                                             block=opt.bsw_block)
+    blocks, entry = [], []
+    with recording_bsw(blocks, entry):
+        outs, stats = pe.run_rescues_batched(tasks, idx, opt.bsw, device=dev)
     with recording_galign(calls):
         pe.merge_rescues((res[:n], res[n:]), tasks, outs, idx, opt.bsw,
                          opt.mem.min_seed_len, peopt,
                          align=functools.partial(
                              galign_pkg.global_align_batch,
                              device=opt.device))
-    return blocks, stats, pes, calls, seed_calls[0]
+    return (blocks, entry), stats, pes, calls, seed_calls[0]
 
 
-def check_rescue_bsw(blocks: list, dev) -> dict:
-    """Every rescue block held exactly against the plain version, then
+def check_rescue_bsw(blocks: list, entry: list, dev) -> dict:
+    """Every rescue block held exactly against the plain version, and the
+    entry's own result of it (``entry``, from ``recording_bsw``), then
     timed beside its bound; the kernel line reports the block with the
     most banded cells."""
     if not blocks:
         raise AssertionError("the rescue sample dispatched no BSW block")
     p = BSWParams()
+    entry_err, entry_ms = check_entry(blocks, entry, p, dev, "rescue")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     args = [[torch.from_numpy(a).to(dev) for a in b] for b in blocks]
-    err = 0
+    err = entry_err
     for j, a in enumerate(args):
         got, want = bsw_call(*a, p), bsw_ref(*a, p)
         err = max(err, int((got - want).abs().max()))
@@ -874,7 +909,8 @@ def check_rescue_bsw(blocks: list, dev) -> dict:
           tmax=",".join(str(a[1].shape[1]) for a in args),
           cells=cells, task_rows=rows,
           cells_per_row=f"{cells / max(rows, 1):.1f}",
-          max_smem_bytes_a_cta=max(g[2] for g in geo), max_abs_err=err)
+          max_smem_bytes_a_cta=max(g[2] for g in geo),
+          entry_ms_per_block=f"{entry_ms:.4f}", max_abs_err=err)
     heaviest = None
     for j, one in enumerate(args):
         ms = kernel_ms(lambda: bsw_call(*one, p), "bsw_kernel", 1)
@@ -2790,9 +2826,9 @@ def main() -> int:
                                        for which, st in rounds])
         del rounds
         blocks = {f"real{j}": (b, BSWParams())
-                  for j, b in enumerate(sample)}
+                  for j, b in enumerate(sample[0])}
         blocks.update(synthetic_bsw_blocks())
-        results.update(check_bsw(blocks, dev))
+        results.update(check_bsw(blocks, sample[1], dev))
         p1, p2, _ = simulate_pairs(ref, N_RESCUE_PAIRS, READ_LEN, seed=11,
                                    **PAIR_SIM)
         rblocks, rstats, pes_r, gcalls, seeds_r = rescue_blocks(idx, p1, p2,
@@ -2801,7 +2837,7 @@ def main() -> int:
               rescue_tasks=rstats["rescue_tasks"],
               rescue_bsw=rstats["rescue_bsw"], fr_failed=pes_r[1].failed,
               fr_avg=f"{pes_r[1].avg:.2f}")
-        results["bsw"].update(check_rescue_bsw(rblocks, dev))
+        results["bsw"].update(check_rescue_bsw(*rblocks, dev))
         del rblocks
         # finalize's regions: the 512 reads' in one launch as the main
         # path makes it, both ends' and the rescued mates' of the rescue

@@ -15,9 +15,11 @@ with the in-row F recurrence written as a prefix max over
 of the kernel.
 
 ``pack_tasks`` lays a task list out as the padded (W, qmax)/(W, tmax)
-arrays both take; ``bsw_extend_tasks`` is the length-sorted block driver
-shared by the pipeline's executor; ``wasted_cell_stats`` counts the
-useful and the computed DP cells of a blocking (the paper's Table 8).
+arrays both take; ``bsw_extend_wave`` is the length-sorted driver of
+one wave of tasks given as arrays (the pipeline's executor sends each
+wave in one call), ``bsw_extend_tasks`` the same over a task list;
+``wasted_cell_stats`` counts the useful and the computed DP cells of a
+blocking (the paper's Table 8).
 The ``baseline`` engine runs ``bsw_extend`` itself, one task at a time.
 """
 
@@ -315,74 +317,159 @@ def pack_tasks(queries, targets, h0s, p: BSWParams, ws=None,
                qmax: int | None = None, tmax: int | None = None):
     """Pad a task list to the kernel's layout: qs (W, qmax) and ts
     (W, tmax) int32 with pad code 4, and qlens, tlens, h0s and the
-    ``adjusted_band`` of each task's w, all (W,) int32 numpy arrays."""
+    ``adjusted_band`` of each task's w, all (W,) int32 numpy arrays
+    (``stage_tasks`` then ``unstage_tasks`` on the host)."""
+    buf, qlens, tlens = stage_tasks(queries, targets, h0s, p, ws)
+    return tuple(t.numpy() for t in unstage_tasks(
+        torch.from_numpy(buf), qlens, tlens, qmax, tmax))
+
+
+def stage_tasks(queries, targets, h0s, p: BSWParams, ws=None, *,
+                alloc=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A task list (codes 0..4) as ONE flat byte buffer: the int32 qlens,
+    tlens, h0s and ``adjusted_band`` of each task's w (``p.w`` where
+    ``ws`` is None), then every query's codes and every target's, a byte
+    each, then one pad code 4.  ``alloc(n)`` gives the buffer (a reused
+    pinned one), by default a new array.  Returns (the buffer, qlens,
+    tlens); ``unstage_tasks`` lays it out as the kernel's arrays."""
     W = len(queries)
-    qlens = np.array([len(q) for q in queries], np.int32)
-    tlens = np.array([len(t) for t in targets], np.int32)
+    qlens = np.fromiter(map(len, queries), np.int64, W)
+    tlens = np.fromiter(map(len, targets), np.int64, W)
+    nq, nt = int(qlens.sum()), int(tlens.sum())
+    n = 16 * W + nq + nt + 1
+    buf = np.empty(n, np.uint8) if alloc is None else alloc(n)[:n]
+    ints = buf[:16 * W].view(np.int32).reshape(4, W)
+    ints[0] = qlens
+    ints[1] = tlens
+    ints[2] = np.asarray(h0s).reshape(W)
+    ints[3] = adjusted_bands(qlens, p, p.w if ws is None else
+                             np.asarray(ws).reshape(W))
+    if W:
+        np.concatenate(queries, out=buf[16 * W:16 * W + nq],
+                       casting="unsafe")
+        np.concatenate(targets, out=buf[16 * W + nq:n - 1],
+                       casting="unsafe")
+    buf[n - 1] = 4
+    return buf, qlens, tlens
+
+
+def unstage_tasks(buf: torch.Tensor, qlens: np.ndarray, tlens: np.ndarray,
+                  qmax: int | None = None, tmax: int | None = None):
+    """``stage_tasks``'s buffer, on any device, as the kernel's arrays
+    there: qs (W, qmax) and ts (W, tmax) int32, each row its codes then
+    pad code 4 (one gather a side), and the (W,) int32 qlens, tlens, h0s
+    and ws (views of the buffer).  ``qlens``/``tlens`` are the host's
+    copies, for the widths and offsets: nothing waits for the device."""
+    W = len(qlens)
     qmax = qmax or max(int(qlens.max(initial=0)), 1)
     tmax = tmax or max(int(tlens.max(initial=0)), 1)
-    qs = np.full((W, qmax), 4, np.int32)
-    ts = np.full((W, tmax), 4, np.int32)
-    for i, (q, t) in enumerate(zip(queries, targets)):
-        qs[i, :len(q)] = q
-        ts[i, :len(t)] = t
-    ws_in = np.array([adjusted_band(int(qlens[i]), p,
-                                    p.w if ws is None else int(ws[i]))
-                      for i in range(W)], np.int32)
-    return qs, ts, qlens, tlens, np.asarray(h0s, np.int32).reshape(W), ws_in
+    if qlens.max(initial=0) > qmax or tlens.max(initial=0) > tmax:
+        raise ValueError(f"bsw: a task is longer than qmax {qmax} or tmax "
+                         f"{tmax}")
+    ints = buf[:16 * W].view(torch.int32).view(4, W)
+    seq = buf[16 * W:]
+    pad = len(seq) - 1
+
+    def padded(lens: torch.Tensor, base: int, width: int) -> torch.Tensor:
+        lens = lens.long()
+        off = torch.cumsum(lens, 0) - lens + base
+        col = torch.arange(width, device=buf.device)
+        src = torch.where(col < lens[:, None], off[:, None] + col, pad)
+        return seq[src].int()
+    return (padded(ints[0], 0, qmax), padded(ints[1], int(qlens.sum()), tmax),
+            ints[0], ints[1], ints[2], ints[3])
+
+
+def adjusted_bands(qlens, p: BSWParams, ws) -> np.ndarray:
+    """``adjusted_band`` of every task at once: ``qlens`` and ``ws``
+    (an array or one width for all) -> the clamped widths, int64."""
+    qa = np.asarray(qlens, np.int64) * p.a + p.end_bonus
+    max_ins = np.maximum(np.trunc((qa - p.o_ins) / p.e_ins + 1.0), 1)
+    max_del = np.maximum(np.trunc((qa - p.o_del) / p.e_del + 1.0), 1)
+    return np.minimum(np.asarray(ws, np.int64),
+                      np.minimum(max_ins, max_del).astype(np.int64))
+
+
+def bsw_extend_wave(seqs, qlens, tlens, h0s, ws, p: BSWParams, *,
+                    batch_fn, sort: bool = True,
+                    pad: int = 32) -> tuple[np.ndarray, dict]:
+    """Batched driver of one wave of n extension tasks (paper §5.3.1),
+    given as arrays: ``qlens``, ``tlens``, ``h0s``, ``ws`` (n,).
+
+    Tasks with an empty query or target short-circuit to the no-op
+    result (ksw_extend is never called with empty sequences in bwa).
+    The live ones are length-sorted by (tlen, qlen) and sent through
+    ``batch_fn`` in ONE call, padded to a multiple of ``pad``.
+    ``seqs(i)`` gives the (queries, targets) sequences of the tasks
+    ``i`` (an index array, in launch order).
+
+    ``batch_fn(queries, targets, h0s, p, ws=, qmax=, tmax=)`` returns
+    the call's (6, W) results (a replacement may return one ExtResult a
+    task): the pipeline passes ``kernels.bsw.bsw_extend_kernel`` bound
+    to its device.
+
+    Returns ((6, n) int64 rows score, qle, tle, gtle, gscore, max_off in
+    INPUT order, stats) where stats carries the Table-8-style cell
+    accounting: ``cells_useful`` the tasks' qlen x tlen, ``cells_total``
+    the padded (W, qmax) x (W, tmax) layout the call sends."""
+    qlens, tlens = np.asarray(qlens), np.asarray(tlens)
+    h0s, ws = np.asarray(h0s), np.asarray(ws)
+    n = len(qlens)
+    out = np.zeros((6, n), np.int64)     # the no-op result:
+    out[0] = h0s                         # ExtResult(h0, 0, 0, 0, -1, 0)
+    out[4] = -1
+    stats = dict(tasks=0, cells_useful=0, cells_total=0)
+    i = np.flatnonzero((qlens > 0) & (tlens > 0))
+    if not len(i):
+        return out, stats
+    if sort:
+        i = i[sort_tasks_by_length(qlens[i], tlens[i])]
+    with obs.span("bsw.pack"):
+        qs, ts = seqs(i)
+    ql, tl = qlens[i], tlens[i]
+    qmax = -(-int(ql.max()) // pad) * pad
+    tmax = -(-int(tl.max()) // pad) * pad
+    res = batch_fn(qs, ts, h0s[i], p, ws=ws[i], qmax=qmax, tmax=tmax)
+    out[:, i] = res if isinstance(res, np.ndarray) else np.array(
+        [(r.score, r.qle, r.tle, r.gtle, r.gscore, r.max_off)
+         for r in res], np.int64).reshape(-1, 6).T
+    obs.count("bsw_dispatches")
+    stats["tasks"] = len(i)
+    stats["cells_useful"] = int((ql * tl).sum())
+    stats["cells_total"] = qmax * tmax * len(i)
+    return out, stats
 
 
 def bsw_extend_tasks(queries, targets, h0s, p: BSWParams,
                      ws=None, *, batch_fn, block: int = 256, sort: bool = True,
                      pad: int = 32):
-    """Batched driver for an ARBITRARY extension-task list (paper §5.3.1).
+    """``bsw_extend_wave`` over an ARBITRARY extension-task list: the
+    tasks' sequences, ``h0s`` and ``ws`` (None: ``p.w`` for all) as
+    lists; the live tasks length-sorted and cut into calls of at most
+    ``block`` tasks.
 
-    The inter-task entry point shared by the pipeline's BSW stage and the
-    paired-end mate-rescue fan-out: tasks are length-sorted, cut into
-    lockstep blocks of ``block`` lanes, padded to a multiple of ``pad``
-    and dispatched through ``batch_fn``.  Empty-query/target tasks
-    short-circuit to the no-op result (ksw_extend is never called with
-    empty sequences in bwa).
-
-    ``batch_fn(queries, targets, h0s, p, ws=, qmax=, tmax=)`` runs one
-    block and returns its ExtResults — the pipeline passes
-    ``kernels.bsw.bsw_extend_kernel`` bound to its device.
-
-    Returns (results in INPUT order, stats) where stats carries the
-    Table-8-style useful/computed cell accounting.
-    """
+    Returns (ExtResults in INPUT order, stats)."""
     n = len(queries)
-    results: list = [None] * n
+    qlens = np.fromiter(map(len, queries), np.int64, n)
+    tlens = np.fromiter(map(len, targets), np.int64, n)
+    h0s = np.asarray(h0s, np.int64).reshape(n)
+    ws = np.full(n, p.w) if ws is None else np.asarray(ws, np.int64)
+    live = (qlens > 0) & (tlens > 0)
+    order = np.flatnonzero(live)
+    if sort:
+        order = order[sort_tasks_by_length(qlens[order], tlens[order])]
+    out = np.empty((6, n), np.int64)
     stats = dict(tasks=0, cells_useful=0, cells_total=0)
-    live = []
-    for i in range(n):
-        if len(queries[i]) == 0 or len(targets[i]) == 0:
-            results[i] = ExtResult(h0s[i], 0, 0, 0, -1, 0)
-        else:
-            live.append(i)
-    if not live:
-        return results, stats
-    qlens = np.array([len(queries[i]) for i in live])
-    tlens = np.array([len(targets[i]) for i in live])
-    order = sort_tasks_by_length(qlens, tlens) if sort \
-        else np.arange(len(live))
-    for s in range(0, len(live), block):
-        idxs = [live[j] for j in order[s:s + block]]
-        qs = [queries[i] for i in idxs]
-        ts = [targets[i] for i in idxs]
-        h0b = [h0s[i] for i in idxs]
-        wsb = None if ws is None else [ws[i] for i in idxs]
-        qmax = -(-max(len(q) for q in qs) // pad) * pad
-        tmax = -(-max(len(t) for t in ts) // pad) * pad
-        res = batch_fn(qs, ts, h0b, p, ws=wsb, qmax=qmax, tmax=tmax)
-        for i, r in zip(idxs, res):
-            results[i] = r
-        obs.count("bsw_dispatches")
-        stats["tasks"] += len(idxs)
-        stats["cells_useful"] += int((np.array([len(q) for q in qs]) *
-                                      np.array([len(t) for t in ts])).sum())
-        stats["cells_total"] += qmax * tmax * len(idxs)
-    return results, stats
+    # the empty tasks short-circuit without a call, then the blocks
+    for i in [np.flatnonzero(~live)] + [order[s:s + block]
+                                        for s in range(0, len(order), block)]:
+        out[:, i], st = bsw_extend_wave(
+            lambda k, i=i: ([queries[j] for j in i[k]],
+                            [targets[j] for j in i[k]]),
+            qlens[i], tlens[i], h0s[i], ws[i], p, batch_fn=batch_fn,
+            sort=False, pad=pad)
+        stats = {k: v + st[k] for k, v in stats.items()}
+    return [ExtResult(*r) for r in out.T.tolist()], stats
 
 
 def sort_tasks_by_length(qlens: np.ndarray, tlens: np.ndarray) -> np.ndarray:

@@ -46,7 +46,7 @@ from ..kernels import galign as kgalign
 from ..kernels.fmocc.ops import DEFAULT_CANDIDATE, OccConfig
 from . import smem as smem_mod
 from . import sal as sal_mod
-from .bsw import BSWParams, ExtResult, bsw_extend, bsw_extend_tasks
+from .bsw import BSWParams, ExtResult, bsw_extend, bsw_extend_wave
 from .chain import Chain, ChainOptions, chain_seeds, filter_chains
 from .contig import block_bounds, contig_edges
 from .fmindex import FMIndex
@@ -96,6 +96,31 @@ def _chain_rmax(chain: Chain, l_query: int, idx: FMIndex, p: BSWParams,
         r1 = max(r1, e)
     lo, hi = block_bounds(idx, chain.seeds[0][0])
     return max(r0, lo), min(r1, hi)
+
+
+def max_gaps(p: BSWParams, qlens: np.ndarray, w: int) -> np.ndarray:
+    """``cal_max_gap`` of every length in ``qlens`` at once (int64)."""
+    qa = np.asarray(qlens, np.int64) * p.a
+    l_del = np.trunc((qa - p.o_del) / p.e_del + 1.0)
+    l_ins = np.trunc((qa - p.o_ins) / p.e_ins + 1.0)
+    return np.minimum(np.maximum(np.maximum(l_del, l_ins), 1),
+                      w << 1).astype(np.int64)
+
+
+def chain_windows(rb, qb, ln, l_query, starts, edges, l_pac: int,
+                  p: BSWParams, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """``_chain_rmax`` of every chain at once.  The chains' seeds are flat
+    int64 arrays ``rb``, ``qb``, ``ln`` with each seed's query length
+    ``l_query``; chain c's seeds run from ``starts[c]`` to the next start
+    (at least one each); ``edges`` are the contig block boundaries
+    (``contig_edges``).  Returns (rmax0, rmax1), one of each a chain."""
+    b = rb - (qb + max_gaps(p, qb, w))
+    tail = l_query - qb - ln
+    e = rb + ln + (tail + max_gaps(p, tail, w))
+    r0 = np.minimum(np.minimum.reduceat(b, starts), l_pac << 1)
+    r1 = np.maximum(np.maximum.reduceat(e, starts), 0)
+    blk = np.searchsorted(edges, rb[starts], side="right") - 1
+    return np.maximum(r0, edges[blk]), np.minimum(r1, edges[blk + 1])
 
 
 def _seed_order(chain: Chain) -> list[int]:
@@ -228,108 +253,118 @@ def bsw_immediate(p: BSWParams):
 
 
 class BatchedBSWExecutor:
-    """Optimized executor (paper §5.3): pre-plans every (seed, side, round)
-    extension task, runs them as length-sorted inter-task batches, then
-    serves the decision replay from the result table.  Each block runs
-    through ``kernels.bsw.bsw_extend_kernel`` on ``device``."""
+    """Optimized executor (paper §5.3): plans every (seed, side, round)
+    extension task over whole-batch arrays, runs each of the four waves
+    (left and right, rounds 0 and 1) as ONE length-sorted launch of
+    ``kernels.bsw.bsw_extend_kernel`` on ``device``, then serves the
+    decision replay from the waves' results."""
 
-    def __init__(self, p: BSWParams, *, device, block: int = 256,
-                 sort: bool = True):
+    def __init__(self, p: BSWParams, *, device, sort: bool = True):
         self.p = p
         self.device = device
-        self.block = block
         self.sort = sort
-        self.table: dict = {}
         self.stats = obs.Snapshot(tasks=0, cells_useful=0, cells_total=0)
-
-    def _run(self, tasks: dict):
-        """tasks: key -> (q, t, h0, w). Executes batched, fills self.table."""
-        keys = list(tasks.keys())
-        if not keys:
-            return
-        res, st = bsw_extend_tasks([tasks[k][0] for k in keys],
-                                   [tasks[k][1] for k in keys],
-                                   [tasks[k][2] for k in keys], self.p,
-                                   ws=[tasks[k][3] for k in keys],
-                                   block=self.block, sort=self.sort,
-                                   batch_fn=functools.partial(
-                                       kbsw.bsw_extend_kernel,
-                                       device=self.device))
-        for k, r in zip(keys, res):
-            self.table[k] = r
-        self.stats.merge_in(st)
+        self._jobs: dict = {}       # jid -> its index j in the plan
+        self._seeds = ([], [])      # job j's first seed row, its seeds
+        self._results: dict = {}    # (side, round) -> (each seed row's
+                                    # task, -1 if none; the tasks' six
+                                    # ExtResult fields, a list each)
 
     def plan_and_run(self, jobs):
-        """jobs: list of (job_id, chain, query, idx).
+        """jobs: list of (job_id, chain, query, idx), one idx for all.
 
-        Phase 1: left round-0 for every non-skippable seed... note the
-        containment skip depends on ALREADY-EXTENDED alignments, which the
-        batched path cannot know upfront — so (like bwa-mem2) it extends
-        EVERY seed and filters afterwards.  Rounds/h0 chaining is resolved
-        with two batched waves per side.
+        The containment skip depends on ALREADY-EXTENDED alignments, which
+        the batched path cannot know upfront — so (like bwa-mem2) it
+        extends EVERY seed and filters afterwards.  The rounds are four
+        waves: L0 every seed with query left of it; L1 the L0 tasks whose
+        score moved and whose path reached 3/4 of the band, at twice the
+        band; R0 every seed with query right of it, h0 its left score (L1's
+        if run, else L0's, else the seed's own); R1 from R0 as L1 from L0.
         """
         p = self.p
-        # ---- wave L0: all left extensions, round 0 ----
-        Ltasks = {}
-        meta = {}
-        for (jid, chain, query, idx) in jobs:
+        if not jobs:
+            return
+        with obs.span("bsw.plan"):
+            idx = jobs[0][3]
             S = idx.seq
-            rmax0, rmax1 = _chain_rmax(chain, len(query), idx, p, p.w)
-            meta[jid] = (rmax0, rmax1)
-            for k, (rb_s, qb_s, ln_s) in enumerate(chain.seeds):
-                if qb_s > 0:
-                    Ltasks[(jid, "L", k, 0)] = (query[:qb_s][::-1],
-                                                S[rmax0:rb_s][::-1],
-                                                ln_s * p.a, p.w)
-        self._run(Ltasks)
-        # ---- wave L1: band-doubled retries ----
-        L1 = {}
-        for key, (q, t, h0, w) in Ltasks.items():
-            r = self.table[key]
-            if not (r.score == 0 or r.max_off < (p.w >> 1) + (p.w >> 2)):
-                L1[key[:3] + (1,)] = (q, t, h0, p.w << 1)
-        self._run(L1)
-        # ---- wave R0: rights, h0 from the seed's own left outcome ----
-        Rtasks = {}
-        for (jid, chain, query, idx) in jobs:
-            rmax0, rmax1 = meta[jid]
-            rseq = idx.seq[rmax0:rmax1]
-            l_query = len(query)
-            for k, (rb_s, qb_s, ln_s) in enumerate(chain.seeds):
-                sc0 = self._left_score(jid, k, qb_s, ln_s)
-                if qb_s + ln_s != l_query:
-                    qe0 = qb_s + ln_s
-                    re0 = rb_s + ln_s - rmax0
-                    Rtasks[(jid, "R", k, 0)] = (query[qe0:], rseq[re0:],
-                                                sc0, p.w)
-        self._run(Rtasks)
-        R1 = {}
-        for key, (q, t, h0, w) in Rtasks.items():
-            r = self.table[key]
-            if not (r.score == h0 or r.max_off < (p.w >> 1) + (p.w >> 2)):
-                R1[key[:3] + (1,)] = (q, t, h0, p.w << 1)
-        self._run(R1)
+            counts = np.fromiter((len(c.seeds) for _, c, _, _ in jobs),
+                                 np.int64, len(jobs))
+            rb, qb, ln = np.array([sd for _, c, _, _ in jobs
+                                   for sd in c.seeds],
+                                  np.int64).reshape(-1, 3).T
+            job = np.repeat(np.arange(len(jobs)), counts)
+            lq = np.fromiter((len(q) for _, _, q, _ in jobs), np.int64,
+                             len(jobs))[job]
+            starts = np.cumsum(counts) - counts
+            rmax0, rmax1 = (r[job] for r in chain_windows(
+                rb, qb, ln, lq, starts, contig_edges(idx), idx.n_ref, p,
+                p.w))
+            self._jobs = dict(zip((j[0] for j in jobs), range(len(jobs))))
+            self._seeds = (starts.tolist(), counts.tolist())
+            queries = [q for _, _, q, _ in jobs]
+            nS, Srev = len(S), S[::-1]
+            qe, re = qb + ln, rb + ln
+            # left: query[:qb][::-1] against S[rmax0:rb][::-1]; right:
+            # query[qe:] against S[re:rmax1] (rseq[re0:] of chain2aln)
+            left = (np.minimum(qb, lq),
+                    np.maximum(np.minimum(rb, nS) - rmax0, 0),
+                    lambda i: ([queries[j][b - 1::-1] for j, b in
+                                zip(job[i].tolist(), qb[i].tolist())],
+                               [Srev[nS - e:nS - b] for b, e in
+                                zip(rmax0[i].tolist(), rb[i].tolist())]))
+            right = (np.maximum(lq - qe, 0),
+                     np.maximum(np.minimum(rmax1, nS) - re, 0),
+                     lambda i: ([queries[j][b:] for j, b in
+                                 zip(job[i].tolist(), qe[i].tolist())],
+                                [S[b:e] for b, e in
+                                 zip(re[i].tolist(), rmax1[i].tolist())]))
+        retry = (p.w >> 1) + (p.w >> 2)
+        h0 = ln * p.a
+        L0 = np.flatnonzero(qb > 0)
+        out = self._wave(("L", 0), L0, left, h0)
+        L1 = L0[(out[0] != 0) & (out[5] >= retry)]
+        sc0 = h0.copy()              # each seed's left score: R0's h0
+        sc0[L0] = out[0]
+        sc0[L1] = self._wave(("L", 1), L1, left, h0)[0]
+        R0 = np.flatnonzero(qe != lq)
+        out = self._wave(("R", 0), R0, right, sc0)
+        R1 = R0[(out[0] != sc0[R0]) & (out[5] >= retry)]
+        self._wave(("R", 1), R1, right, sc0)
 
-    def _left_score(self, jid, k, qb_s, ln_s):
-        """Replays bwa's left-extension round logic for seed k's score."""
-        p = self.p
-        if qb_s == 0:
-            return ln_s * p.a
-        score = 0
-        for t in range(MAX_BAND_TRY):
-            prev = score
-            r = self.table.get((jid, "L", k, t))
-            if r is None:
-                break
-            score = r.score
-            aw0 = p.w << t
-            if score == prev or r.max_off < (aw0 >> 1) + (aw0 >> 2):
-                break
-        return score
+    def _wave(self, wave, rows, side, h0s) -> np.ndarray:
+        """Run wave ``wave`` (side, round) over the seed ``rows`` in one
+        launch, ``side`` the (query lengths, target lengths, sequences)
+        of every seed's task on that side; keep the results for the
+        replay and return the wave's (6, n) results."""
+        qlens, tlens, seqs = side
+        out, st = bsw_extend_wave(
+            lambda i: seqs(rows[i]), qlens[rows], tlens[rows], h0s[rows],
+            np.full(len(rows), self.p.w << wave[1]), self.p,
+            batch_fn=functools.partial(kbsw.bsw_extend_kernel,
+                                       device=self.device), sort=self.sort)
+        self.stats.merge_in(st)
+        with obs.span("bsw.unpack"):
+            # plain lists of ints, no object a task: a chunk's tens of
+            # thousands of ExtResults, alive until the replay, would make
+            # the collector walk the heap again and again
+            at = np.full(len(h0s), -1)
+            at[rows] = np.arange(len(rows))
+            self._results[wave] = (at.tolist(), out.tolist())
+        return out
 
     def executor(self, jid):
+        """The replay's ``bsw_fn`` for job ``jid``: a task's result by its
+        (side, seed, round); one the plan did not run raises KeyError."""
+        j = self._jobs[jid]
+        first, n = self._seeds[0][j], self._seeds[1][j]
+        results = self._results
+
         def fn(side, seed_id, rnd, q, t, h0, w):
-            return self.table[(jid, side, seed_id, rnd)]
+            at, (sc, qle, tle, gtle, gsc, off) = results[side, rnd]
+            i = at[first + seed_id] if 0 <= seed_id < n else -1
+            if i < 0:
+                raise KeyError((jid, side, seed_id, rnd))
+            return ExtResult(sc[i], qle[i], tle[i], gtle[i], gsc[i], off[i])
         return fn
 
 
@@ -502,7 +537,6 @@ class PipelineOptions:
     mem: MemOptions = MemOptions()
     chain: ChainOptions = ChainOptions()
     bsw: BSWParams = BSWParams()
-    bsw_block: int = 256
     bsw_sort: bool = True
     min_score: int = 30             # emission threshold (bwa -T)
     all_hits: bool = False          # bwa -a: also emit secondary records
@@ -603,7 +637,7 @@ def run_se_batched(idx: FMIndex, reads: np.ndarray,
                 jobs.append(((r, ci), c, reads[r], idx))
     # Stage 4: batched inter-task BSW with length sorting
     execu = BatchedBSWExecutor(opt.bsw, device=opt.device,
-                               block=opt.bsw_block, sort=opt.bsw_sort)
+                               sort=opt.bsw_sort)
     with obs.span("bsw", jobs=len(jobs)):
         execu.plan_and_run(jobs)
     # Stage 5: decision replay + SAM-FORM: every read's emitted regions

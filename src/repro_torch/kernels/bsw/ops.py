@@ -7,20 +7,21 @@ CUDA device it launches the kernel, one warp a task, and raises if the
 library does not build, the launch fails or one task's rows do not fit in
 shared memory (ValueError); any other device raises.
 
-``bsw_extend_kernel`` is the pipeline's ``batch_fn``: it packs a block of
-tasks (``core.bsw.pack_tasks``, which applies ``adjusted_band`` on the
-host), moves it to ``device`` and returns one ExtResult per task.  It
-replaces ``repro.kernels.bsw.ops.bsw_extend_pallas`` and the Pallas
-kernel behind it.
+``bsw_extend_kernel`` is the pipeline's ``batch_fn``: it stages a wave of
+tasks as one byte buffer (``core.bsw.stage_tasks``, which applies
+``adjusted_band`` on the host), moves it to ``device`` in one copy, pads
+it to the kernel's layout there and returns the tasks' (6, W) results.
+It replaces
+``repro.kernels.bsw.ops.bsw_extend_pallas`` and the Pallas kernel behind
+it.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ... import obs
-from ...core.bsw import BSWParams, ExtResult, pack_tasks
+from ...core.bsw import BSWParams, stage_tasks, unstage_tasks
 from .. import build
 from .ref import bsw_ref
 
@@ -94,12 +95,24 @@ def bsw_call(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
 
 def bsw_extend_kernel(queries, targets, h0s, p: BSWParams, ws=None,
                       qmax: int | None = None, tmax: int | None = None, *,
-                      device) -> list[ExtResult]:
-    """One block of extension tasks on ``device`` (the ``batch_fn`` of
-    ``core.bsw.bsw_extend_tasks``); ExtResults in task order."""
-    packed = pack_tasks(queries, targets, h0s, p, ws, qmax, tmax)
+                      device):
+    """One launch of extension tasks on ``device`` (the ``batch_fn`` of
+    ``core.bsw.bsw_extend_wave``): the (6, W) int32 numpy array of their
+    rows score, qle, tle, gtle, gscore, max_off, in task order.  The
+    tasks are staged as one flat byte buffer (``core.bsw.stage_tasks``;
+    on a card the thread's pinned ``build.staging`` buffer), sent in one
+    copy and laid out on the device (``unstage_tasks``); the results
+    come back in one readback."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    with obs.span("bsw.pack"):
+        buf, qlens, tlens = stage_tasks(
+            queries, targets, h0s, p, ws,
+            alloc=(lambda n: build.staging(n).numpy()) if cuda else None)
     with obs.span("kernel.bsw", cat="kernel", lanes=len(queries)):
         obs.count("kernel_bsw_dispatches")
-        dev_args = [torch.from_numpy(a).to(device) for a in packed]
-        out = bsw_call(*dev_args, p).cpu().numpy()
-    return [ExtResult(*(int(v) for v in col)) for col in np.asarray(out).T]
+        src = build.staging(len(buf))[:len(buf)] if cuda \
+            else torch.from_numpy(buf)
+        args = unstage_tasks(src.to(device, non_blocking=cuda), qlens,
+                             tlens, qmax, tmax)
+        return bsw_call(*args, p).cpu().numpy()

@@ -11,8 +11,9 @@ Nothing is built at import time: ``library()`` builds on its first call,
 which is the first kernel launch on a CUDA tensor.
 
 It also holds what every wrapper shares: the one launch counter
-(``LAUNCHES``, ``count_launch``), the launch gate (``GATE``) and the
-host-to-device copy ``to_device``.
+(``LAUNCHES``, ``count_launch``), the launch gate (``GATE``), the
+host-to-device copy ``to_device`` and each thread's pinned staging
+buffer (``staging``).
 """
 
 from __future__ import annotations
@@ -153,6 +154,23 @@ def to_device(a: np.ndarray, dev) -> torch.Tensor:
     if torch.device(dev).type != "cuda":
         return x.to(dev)
     return x.pin_memory().to(dev, non_blocking=True)
+
+
+_STAGING = threading.local()
+
+
+def staging(n: int) -> torch.Tensor:
+    """This thread's pinned host buffer of at least ``n`` bytes (uint8),
+    reused across calls and grown (at least doubled) on demand.  A caller
+    packs into it and copies it to the card without waiting; the copy has
+    to be done (say, a readback on the same stream) before the thread's
+    next call writes the buffer again."""
+    buf = getattr(_STAGING, "buf", None)
+    if buf is None or buf.numel() < n:
+        grown = max(n, 2 * buf.numel()) if buf is not None else n
+        buf = _STAGING.buf = torch.empty(grown, dtype=torch.uint8,
+                                         pin_memory=True)
+    return buf
 
 
 def check(err: int, name: str) -> None:

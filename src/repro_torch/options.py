@@ -83,7 +83,6 @@ class AlignOptions:
 
     # --- engine/driver knobs (PipelineOptions extras) ---
     engine: str = ENGINE_CUDA       # registry name; see repro_torch.api
-    bsw_block: int = 256
     bsw_sort: bool = True
     device: str = "cuda"            # "cuda[:n]" or "cpu"
 
@@ -117,7 +116,6 @@ class AlignOptions:
         return PipelineOptions(mem=self.mem_options(),
                                chain=self.chain_options(),
                                bsw=self.bsw_params(),
-                               bsw_block=self.bsw_block,
                                bsw_sort=self.bsw_sort,
                                min_score=self.min_score,
                                all_hits=self.all_hits,

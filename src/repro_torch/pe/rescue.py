@@ -237,12 +237,12 @@ def run_rescues_scalar(tasks: list[RescueTask], idx, p: BSWParams):
 
 
 def run_rescues_batched(tasks: list[RescueTask], idx, p: BSWParams, *,
-                        device, block: int = 256, sort: bool = True):
+                        device, sort: bool = True):
     """All rescue extensions across the batch pooled, length-sorted and
     dispatched through the batched BSW executor on ``device``, then
     decisions replayed per task — same structure as the main pipeline's
     Stage 4, through the same bsw kernel."""
-    execu = BatchedBSWExecutor(p, device=device, block=block, sort=sort)
+    execu = BatchedBSWExecutor(p, device=device, sort=sort)
     execu.plan_and_run([(ti, t.chain, t.query, idx)
                         for ti, t in enumerate(tasks)])
     outs = [chain2aln(t.chain, t.query, idx, p, execu.executor(ti))
@@ -321,7 +321,6 @@ def rescue_batched(results: tuple, reads: tuple, pes: list[PairStat], idx,
                                  kdiagseed.diag_seed_batch, device=dev))
     with obs.span("pe_rescue.extend"):
         outs, stats = run_rescues_batched(tasks, idx, opt.bsw, device=dev,
-                                          block=opt.bsw_block,
                                           sort=opt.bsw_sort)
     with obs.span("pe_rescue.merge"):
         n = merge_rescues(results, tasks, outs, idx, opt.bsw,

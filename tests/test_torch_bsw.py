@@ -39,6 +39,11 @@ def as_tuples(res):
     return [(r.score, r.qle, r.tle, r.gtle, r.gscore, r.max_off) for r in res]
 
 
+def kernel_results(*a, **k) -> list[ExtResult]:
+    """``bsw_extend_kernel``'s (6, W) rows, one ExtResult a task."""
+    return [ExtResult(*r) for r in bsw_extend_kernel(*a, **k).T.tolist()]
+
+
 @pytest.mark.parametrize("seed,n,qmax,tmax,w", [
     (0, 12, 30, 36, None),
     (1, 9, 64, 20, None),
@@ -49,7 +54,7 @@ def test_plain_equals_pallas_and_scalar(seed, n, qmax, tmax, w):
     p = BSWParams()
     qs, ts, h0s = tasks(seed, n, qmax, tmax, amb=seed % 2 == 1)
     ws = None if w is None else [w] * n
-    got = bsw_extend_kernel(qs, ts, h0s, p, ws=ws, device="cpu")
+    got = kernel_results(qs, ts, h0s, p, ws=ws, device="cpu")
     want = bsw_extend_pallas(qs, ts, h0s, RParams(), ws=ws)
     assert as_tuples(got) == as_tuples(want)
     for q, t, h0, g in zip(qs, ts, h0s, got):
@@ -62,7 +67,7 @@ def test_band_width_one():
     p = BSWParams()
     assert adjusted_band(30, p, 1) == 1
     qs, ts, h0s = tasks(42, 12, 40, 48, related=False)
-    got = bsw_extend_kernel(qs, ts, h0s, p, ws=[1] * 12, device="cpu")
+    got = kernel_results(qs, ts, h0s, p, ws=[1] * 12, device="cpu")
     assert got == [bsw_extend(q, t, h0, p, 1)
                    for q, t, h0 in zip(qs, ts, h0s)]
 
@@ -81,10 +86,10 @@ def test_zdrop_triggers_and_matches():
         ts.append(np.concatenate([head, rng.integers(0, 4, 20), tail]
                                  ).astype(np.uint8))
     h0s = [30] * 6
-    got = bsw_extend_kernel(qs, ts, h0s, p, device="cpu")
+    got = kernel_results(qs, ts, h0s, p, device="cpu")
     assert got == [bsw_extend(q, t, 30, p) for q, t in zip(qs, ts)]
-    no_zdrop = bsw_extend_kernel(qs, ts, h0s, BSWParams(zdrop=0),
-                                 device="cpu")
+    no_zdrop = kernel_results(qs, ts, h0s, BSWParams(zdrop=0),
+                              device="cpu")
     assert all(a.score < b.score for a, b in zip(got, no_zdrop))
     assert as_tuples(got) == as_tuples(bsw_extend_pallas(
         qs, ts, h0s, RParams(zdrop=20)))
@@ -95,8 +100,8 @@ def test_padded_block_shape_hints():
     multiples of 32) do not change results."""
     p = BSWParams()
     qs, ts, h0s = tasks(5, 8, 20, 25)
-    a = bsw_extend_kernel(qs, ts, h0s, p, device="cpu")
-    b = bsw_extend_kernel(qs, ts, h0s, p, qmax=64, tmax=96, device="cpu")
+    a = kernel_results(qs, ts, h0s, p, device="cpu")
+    b = kernel_results(qs, ts, h0s, p, qmax=64, tmax=96, device="cpu")
     assert a == b
 
 
@@ -185,7 +190,7 @@ def test_plain_on_kernel_hard_shapes(name):
         assert all(h - p.o_ins - p.e_ins > 32 * p.e_ins for h in h0s)
     if name == "ambiguous":
         assert all((q == 4).any() and (t == 4).any() for q, t in zip(qs, ts))
-    got = bsw_extend_kernel(qs, ts, h0s, p, ws=ws, device="cpu")
+    got = kernel_results(qs, ts, h0s, p, ws=ws, device="cpu")
     wid = [p.w if ws is None else w for w in (ws or [None] * len(qs))]
     assert as_tuples(got) == as_tuples(
         [r_extend(q, t, h0, rp, w) for q, t, h0, w in zip(qs, ts, h0s, wid)])

@@ -88,8 +88,7 @@ def test_rescue_matches_reference(world, se_results):
             == [(t.pair_id, t.end, t.r, t.chain.seeds) for t in rtasks])
     assert all(np.array_equal(a.query, b.query)
                for a, b in zip(tasks, rtasks))
-    outs, st = pe.run_rescues_batched(tasks, idx, opt.bsw, device=opt.device,
-                                      block=opt.bsw_block)
+    outs, st = pe.run_rescues_batched(tasks, idx, opt.bsw, device=opt.device)
     routs, rst = rpe.run_rescues_batched(rtasks, ridx, ropt.bsw,
                                          block=ropt.bsw_block,
                                          batch_fn=rpipeline.bsw_batch_fn(ropt))

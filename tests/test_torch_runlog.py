@@ -61,8 +61,10 @@ def cpu_aligner(idx, **kw) -> Aligner:
 #: fields that name the run, the host or the package, or read a clock
 VOLATILE = {"run", "ts", "t", "pid", "host", "python", "tool", "engine",
             "argv", "batch_s", "reads_per_s", "eta_s", "wall_s", "out"}
-#: option fields the two packages name differently (device vs Pallas mode)
-PACKAGE_OPTIONS = {"engine", "device", "kernel_interpret"}
+#: option fields the two packages name differently (device vs Pallas
+#: mode), and the reference's BSW block width (the port sends each wave of
+#: extension tasks in one launch and has no such option)
+PACKAGE_OPTIONS = {"engine", "device", "kernel_interpret", "bsw_block"}
 
 
 def normalized(events: list[dict]) -> list[dict]:
