@@ -525,7 +525,9 @@ class Aligner:
         Returns a summary: n_reads/n_records/n_batches plus the merged
         per-stage stats (an ``obs.Snapshot``).  With telemetry enabled the
         summary also carries the run-level I/O accounting (``time_io_s``,
-        batch fill/pad-waste) captured around the batch iterator pulls.
+        batch fill/pad-waste) captured around the batch iterator pulls;
+        with tracing, the garbage collector's ``time_gc_s``,
+        ``gc_collections`` and ``gc_full`` over the stream.
 
         Run-scoped observability (all optional, none touches the SAM
         bytes):
@@ -566,7 +568,11 @@ class Aligner:
             if header:
                 for ln in self.sam_header(cl=cl):
                     print(ln, file=fh)
-            with self._scope() as run_reg:
+            traced = (self.telemetry is not None
+                      and self.telemetry.tracer is not None)
+            with self._scope() as run_reg, (
+                    obs.GcClock().running(run_reg) if traced
+                    else contextlib.nullcontext()):
                 def live_stats() -> obs.Snapshot:
                     # thread-safe view for the exporter: copy under the
                     # lock, then fold in the run registry's current state

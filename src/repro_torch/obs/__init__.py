@@ -30,9 +30,9 @@ from .report import (SHARD_INVARIANT_COUNTERS, STAGES, breakdown,
                      stage_times, write_merged_profile, write_profile)
 from .runlog import (RUNLOG_VERSION, RunLog, index_fingerprint, new_run_id,
                      read_runlog)
-from .trace import (NULL_SPAN, Telemetry, TraceCollector, activate, chunk,
-                    count, current, device_span, enabled, observe, set_gauge,
-                    span)
+from .trace import (NULL_SPAN, GcClock, Telemetry, TraceCollector, activate,
+                    chunk, count, current, device_span, enabled, observe,
+                    set_gauge, span)
 
 __all__ = [
     "DEFAULT_EDGES", "RATIO_EDGES", "Gauge", "Hist", "MetricsRegistry",
@@ -43,7 +43,7 @@ __all__ = [
     "EXPORT_VERSION", "LiveExporter", "prometheus_text", "write_atomic",
     "RUNLOG_VERSION", "RunLog", "index_fingerprint", "new_run_id",
     "read_runlog",
-    "NULL_SPAN", "Telemetry", "TraceCollector", "activate", "chunk",
-    "count", "current", "device_span", "enabled", "observe", "set_gauge",
-    "span",
+    "NULL_SPAN", "GcClock", "Telemetry", "TraceCollector", "activate",
+    "chunk", "count", "current", "device_span", "enabled", "observe",
+    "set_gauge", "span",
 ]

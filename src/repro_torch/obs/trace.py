@@ -30,11 +30,15 @@ carries the index of the ``-K`` chunk it runs in (``chunk``), which a
 nested scope inherits and every span and device event recorded in it
 carries as ``args.chunk``.  A scope's device events are resolved when
 it closes: one anchor event, one synchronize, one host stamp.
+
+``GcClock`` sums the garbage collector's seconds and runs while it is
+``running``; a traced ``stream_sam`` holds one for the stream's length.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import threading
@@ -194,6 +198,40 @@ class Telemetry:
         """Context manager: make (registry, self.tracer) ambient for the
         calling thread; yields the registry (a fresh one by default)."""
         return activate(registry or MetricsRegistry(), self.tracer)
+
+
+class GcClock:
+    """The garbage collector's seconds, collections and full (generation
+    2) collections while ``running``, summed by one ``gc.callbacks``
+    hook.  The hook takes no lock: a collection may start inside any
+    allocation, one made under a registry's or a tracer's lock included.
+    So the sums go to the registry once, when the hook is removed, as
+    ``time_gc_s``, ``gc_collections`` and ``gc_full``."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.collections = 0
+        self.full = 0
+        self._t0 = 0.0
+
+    def _hook(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        self.seconds += time.perf_counter() - self._t0
+        self.collections += 1
+        self.full += info["generation"] == 2
+
+    @contextlib.contextmanager
+    def running(self, registry: MetricsRegistry):
+        gc.callbacks.append(self._hook)
+        try:
+            yield self
+        finally:
+            gc.callbacks.remove(self._hook)
+            registry.add_time("gc", self.seconds)
+            registry.inc("gc_collections", self.collections)
+            registry.inc("gc_full", self.full)
 
 
 class _Active:
